@@ -1,0 +1,22 @@
+"""PyTorch + CUDA port of the stereo tracking path of ``orb_slam2_ros2_tpu``.
+
+The JAX package is the reference this package is held against; this one runs
+the per-frame stereo tracking program (localization mode) on an NVIDIA GPU,
+with the two TPU kernels of that path replaced by CUDA C++ kernels written for
+Hopper (``csrc/``).  It imports torch and numpy only — never JAX.
+"""
+
+import torch as _torch
+
+# Precision policy, the counterpart of ``jax_default_matmul_precision=highest``
+# in the JAX package: SLAM geometry (pose-chain 4×4 products, 6×6 normal
+# equations with entries ~fx²) cannot survive TF32 or reduced-precision bf16
+# reductions.  Deliberately-bf16 stages upcast to f32 explicitly.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+from .config import SLAMConfig  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,187 @@
+"""The ORB feature frontend: pyramid → FAST → orientation → BRIEF → stereo.
+
+Port of ``orb_slam2_ros2_tpu/features/extractor.py`` (reference:
+src/ORBExtractor.cc:499-508, src/Frame.cc:85-111).  Both images of a stereo
+pair run through the same batched ops: [B, H, W] pyramids, one FAST+NMS
+kernel launch per level, one patch-gather kernel launch over a row-stacked
+canvas, and the stereo matcher reuses the gathered patches for SAD
+refinement.  Constant operators (resize weights, moment weights, the BRIEF
+sampling matrix) are placed on the device once, when the frontend is built,
+so a frame copies nothing from the host.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SLAMConfig
+from ..geometry import camera as cam_mod
+from ..ops import brief, fast, stereo
+from ..ops.canvas import canvas_layout, padded_canvas_shape
+from ..ops.patches import extract_patches_48x64
+from ..ops.pyramid import PyramidWeights, build_pyramid, pyramid_weights
+from .frame import FrameFeatures, StereoFrame
+
+
+def level_capacities(max_kp: int, n_levels: int, scale_factor: float) -> List[int]:
+    """Distribute the padded keypoint budget over levels ∝ (1/s)^l
+    (reference ORBExtractor.cc:291-301), rounded to multiples of 8 summing
+    exactly."""
+    inv = 1.0 / scale_factor
+    weights = np.array([inv**l for l in range(n_levels)])
+    raw = max_kp * weights / weights.sum()
+    caps = [max(8, int(c // 8 * 8)) for c in raw]
+    caps[0] += max_kp - sum(caps)
+    return caps
+
+
+class FrontendConstants(NamedTuple):
+    """Device-resident operators of one frontend."""
+
+    pyramid: PyramidWeights
+    row_off: torch.Tensor    # i32[n_levels] canvas row offset per level
+    mweights: torch.Tensor   # f32[patch_px, 2] grey-centroid weights
+    pair_matrix: torch.Tensor  # f32[patch_px, 8192] folded-blur BRIEF matrix
+
+
+def frontend_constants(cfg: SLAMConfig, device) -> FrontendConstants:
+    o, c = cfg.orb, cfg.camera
+    row_off, _, _ = canvas_layout(c.height, c.width, o.n_levels, o.scale_factor)
+    return FrontendConstants(
+        pyramid=pyramid_weights(c.height, c.width, o.n_levels, o.scale_factor, device),
+        row_off=torch.from_numpy(row_off).to(device),
+        mweights=brief.moment_weights(device),
+        pair_matrix=brief.pair_matrix(device, _template_pair_matrix(cfg)),
+    )
+
+
+def extract_features_batch(
+    imgs: torch.Tensor,
+    cam: cam_mod.CameraParams,
+    consts: FrontendConstants,
+    *,
+    h: int,
+    w: int,
+    n_levels: int,
+    scale_factor: float,
+    caps: Tuple[int, ...],
+    border: int,
+    min_th: float,
+    ini_th: float,
+    cell: int,
+    undistort: bool,
+) -> Tuple[FrameFeatures, torch.Tensor]:
+    """[B, H, W] images → (FrameFeatures with [B, N] leading dims,
+    patches f32[B, N, 48, 64])."""
+    B = imgs.shape[0]
+    dev = imgs.device
+    levels = build_pyramid(imgs, n_levels, scale_factor, consts.pyramid)
+    row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
+    rows_p, cols_p = padded_canvas_shape(h, w, n_levels, scale_factor)
+
+    # one tall canvas holding every image's pyramid (image b at row b·rows_p)
+    canvas = torch.zeros((B * rows_p, cols_p), dtype=torch.bfloat16, device=dev)
+    for b in range(B):
+        for l in range(n_levels):
+            hl, wl = levels[l].shape[-2:]
+            r0 = b * rows_p + int(row_off_np[l])
+            canvas[r0:r0 + hl, :wl] = levels[l][b]
+
+    uts, resps, valids, octs = [], [], [], []
+    for l in range(n_levels):
+        score = fast.fast_score_nms(levels[l].contiguous(), min_th)  # [B, Hl, Wl]
+        uv_l, resp_l, valid_l = fast.select_keypoints(
+            score, caps[l], border=border, cell=cell, topk_per_cell=4,
+            strong_threshold=ini_th,
+        )
+        uts.append(uv_l * (scale_factor**l))  # to level-0 coords
+        resps.append(resp_l)
+        valids.append(valid_l)
+        octs.append(torch.full((B, caps[l]), l, dtype=torch.int32, device=dev))
+
+    uv_raw = torch.cat(uts, dim=1)        # [B, N, 2]
+    response = torch.cat(resps, dim=1)
+    valid = torch.cat(valids, dim=1)
+    octave = torch.cat(octs, dim=1)
+    N = uv_raw.shape[1]
+
+    # one 48×64 patch gather serves orientation, BRIEF and the SAD refinement
+    centers = stereo.canvas_centers(uv_raw, octave, scale_factor, consts.row_off)
+    img_off = torch.arange(B, dtype=torch.int32, device=dev)[:, None] * rows_p
+    centers = torch.stack([centers[..., 0] + img_off, centers[..., 1]], dim=-1)
+    patches = extract_patches_48x64(canvas, centers.reshape(B * N, 2).contiguous())
+    angles_rad = brief.orientations(patches, consts.mweights)
+    desc = brief.describe(patches, angles_rad, consts.pair_matrix).reshape(B, N, 8)
+    patches = patches.reshape(B, N, *patches.shape[1:])
+    angles_rad = angles_rad.reshape(B, N)
+
+    uv = (cam_mod.undistort_points(cam, uv_raw.reshape(B * N, 2)).reshape(B, N, 2)
+          if undistort else uv_raw)
+    feats = FrameFeatures(
+        uv=uv, uv_raw=uv_raw, octave=octave, response=response,
+        angle=brief.angles_deg(angles_rad), desc=desc, valid=valid,
+    )
+    return feats, patches
+
+
+def _slice_frame(feats: FrameFeatures, b: int) -> FrameFeatures:
+    return FrameFeatures(*(a[b] for a in feats))
+
+
+def _template_pair_matrix(cfg: SLAMConfig):
+    """Per-instance BRIEF sampling matrix for a configured reference template
+    (None = the generated default)."""
+    if cfg.orb.brief_template_path:
+        tpl = brief.load_template_file(cfg.orb.brief_template_path)
+        return brief.pair_matrix_for_template(tpl)
+    return None
+
+
+def _device_gray(img: torch.Tensor, color: int, luma: torch.Tensor) -> torch.Tensor:
+    """Colour conversion on the device (reference Tracking.cc:52-68): ITU-R
+    601 luma weights ``luma`` (channel-reversed for BGR).  Grayscale inputs
+    pass through."""
+    if color == 0 or img.dim() == 2:
+        return img
+    if color == 2:
+        luma = luma.flip(0)
+    return img[..., :3].float() @ luma
+
+
+class StereoFrontend:
+    """Stereo frontend: ``(img_l, img_r, cam) → StereoFrame`` on one device."""
+
+    def __init__(self, cfg: SLAMConfig, device):
+        o, c = cfg.orb, cfg.camera
+        self.cfg = cfg
+        self.consts = frontend_constants(cfg, device)
+        self.luma = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=device)
+        self.kw = dict(
+            h=c.height, w=c.width, n_levels=o.n_levels, scale_factor=o.scale_factor,
+            caps=tuple(level_capacities(o.max_keypoints, o.n_levels, o.scale_factor)),
+            border=o.edge_border, min_th=float(o.min_th_fast), ini_th=float(o.ini_th_fast),
+            cell=o.cell_size, undistort=c.has_distortion,
+        )
+
+    def __call__(self, img_l: torch.Tensor, img_r: torch.Tensor, cam: cam_mod.CameraParams) -> StereoFrame:
+        c, o, m = self.cfg.camera, self.cfg.orb, self.cfg.matcher
+        img_l = _device_gray(img_l, c.color, self.luma)
+        img_r = _device_gray(img_r, c.color, self.luma)
+        feats, patches = extract_features_batch(
+            torch.stack([img_l, img_r]).float(), cam, self.consts, **self.kw
+        )
+        featL, featR = _slice_frame(feats, 0), _slice_frame(feats, 1)
+        right_u, depth = stereo.stereo_match(
+            featL, featR, patches[0], patches[1],
+            fx=c.fx, bf=c.bf, image_width=c.width, scale_factor=o.scale_factor,
+            mean_threshold=m.mean_threshold, sad_half=m.sad_half_window,
+            search_half=m.sad_search_half,
+        )
+        return StereoFrame(feats=featL, right_u=right_u, depth=depth)
+
+
+def make_stereo_frontend(cfg: SLAMConfig, device) -> StereoFrontend:
+    return StereoFrontend(cfg, device)
