@@ -12,7 +12,7 @@ JAX's ``mode="drop"`` scatters become writes through a one-row-longer buffer
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -117,9 +117,74 @@ def empty_map(cfg: SLAMConfig, device) -> MapState:
     )
 
 
+def grow_map(state: MapState, *, kf_capacity: Optional[int] = None,
+             mp_capacity: Optional[int] = None) -> MapState:
+    """Copy of ``state`` with enlarged capacities (map-length scaling): the
+    stores are re-padded with ``empty_map``'s fill values; slot ids stay
+    put.  Capacities never shrink."""
+    K0, M0 = state.kf_capacity, state.mp_capacity
+    K = kf_capacity if kf_capacity is not None else K0
+    M = mp_capacity if mp_capacity is not None else M0
+    if K < K0 or M < M0:
+        raise ValueError(f"capacities cannot shrink: {(K0, M0)} -> {(K, M)}")
+    dK, dM = K - K0, M - M0
+    if dK == 0 and dM == 0:
+        return state
+
+    def pad(a, n, fill, dim=0):
+        if n == 0:
+            return a
+        shape = list(a.shape)
+        shape[dim] = n
+        return torch.cat([a, torch.full(shape, fill, dtype=a.dtype, device=a.device)], dim=dim)
+
+    def pad_eye(a):
+        eye = torch.eye(4, dtype=a.dtype, device=a.device).expand(dK, 4, 4)
+        return torch.cat([a, eye]) if dK else a
+
+    return state._replace(
+        kf_Tcw=pad_eye(state.kf_Tcw),
+        kf_valid=pad(state.kf_valid, dK, False),
+        kf_frame_id=pad(state.kf_frame_id, dK, -1),
+        kf_uv=pad(state.kf_uv, dK, 0.0),
+        kf_right_u=pad(state.kf_right_u, dK, -1.0),
+        kf_depth=pad(state.kf_depth, dK, -1.0),
+        kf_octave=pad(state.kf_octave, dK, 0),
+        kf_angle=pad(state.kf_angle, dK, 0.0),
+        kf_desc=pad(state.kf_desc, dK, 0),
+        kf_feat_valid=pad(state.kf_feat_valid, dK, False),
+        kf_mp_idx=pad(state.kf_mp_idx, dK, -1),
+        mp_pos=pad(state.mp_pos, dM, 0.0),
+        mp_normal=pad(state.mp_normal, dM, 0.0),
+        mp_desc=pad(state.mp_desc, dM, 0),
+        mp_min_dist=pad(state.mp_min_dist, dM, 0.0),
+        mp_max_dist=pad(state.mp_max_dist, dM, 1e9),
+        mp_valid=pad(state.mp_valid, dM, False),
+        mp_ref_kf=pad(state.mp_ref_kf, dM, -1),
+        mp_n_obs=pad(state.mp_n_obs, dM, 0),
+        mp_visible=pad(state.mp_visible, dM, 1),
+        mp_found=pad(state.mp_found, dM, 1),
+        mp_first_kf=pad(state.mp_first_kf, dM, -1),
+        mp_obs_kf=pad(state.mp_obs_kf, dM, -1),
+        mp_obs_feat=pad(state.mp_obs_feat, dM, -1),
+        covis=pad(pad(state.covis, dK, 0, dim=0), dK, 0, dim=1),
+        kf_parent=pad(state.kf_parent, dK, -1),
+        kf_Tcp=pad_eye(state.kf_Tcp),
+    )
+
+
 # --------------------------------------------------------------------------
 # observation bookkeeping helpers
 # --------------------------------------------------------------------------
+
+def kf_index(kf_id, device) -> torch.Tensor:
+    """A keyframe id (host int or 0-d tensor) as a [1] long tensor: indexing
+    with it gathers on the device, where a 0-d tensor index would be read
+    back to the host.  A host int is filled in by a kernel (``torch.tensor``
+    would copy it from the host)."""
+    if torch.is_tensor(kf_id):
+        return kf_id.reshape(1).long()
+    return torch.full((1,), int(kf_id), dtype=torch.long, device=device)
 
 def _set_drop_2d(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, val) -> torch.Tensor:
     """``x.at[rows, cols].set(val, mode="drop")`` for a 2-D ``x`` (rows out of
@@ -143,6 +208,69 @@ def _append_observations(state: MapState, kf_id, mp_ids: torch.Tensor, feat_ids:
     obs_feat = _set_drop_2d(state.mp_obs_feat, m, slot, torch.where(ok, feat_ids, -1).to(torch.int32))
     n_obs = add_drop_(state.mp_n_obs.clone(), m, ok.to(torch.int32))
     return state._replace(mp_obs_kf=obs_kf, mp_obs_feat=obs_feat, mp_n_obs=n_obs)
+
+
+def merge_mappoints(state: MapState, winner: torch.Tensor, loser: torch.Tensor,
+                    mask: torch.Tensor) -> MapState:
+    """Batched MapPoint::replace (reference MapPoint.cc:213-233): the loser's
+    keyframe slots are repointed to the winner (slots in keyframes the
+    winner already observes are cleared), its observations are appended to
+    the winner's bounded list, the winner inherits its tracking counters and
+    the loser is invalidated.  ``winner/loser/mask [B]``; rows with
+    winner == loser or mask False are no-ops.  A loser named by several rows
+    merges once, into its first row's winner; duplicate winners' list writes
+    keep the last row (``set_drop``)."""
+    K, M = state.kf_capacity, state.mp_capacity
+    N = state.kf_uv.shape[1]
+    O = state.mp_obs_kf.shape[1]
+    dev = winner.device
+    live = mask & (winner != loser) & (winner >= 0) & (loser >= 0)
+    B = winner.shape[0]
+    row_ids = torch.arange(B, dtype=torch.int32, device=dev)
+    first_row = torch.full((M + 1,), B, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.where(live, loser, M).long(), row_ids, reduce="amin")
+    live = live & (first_row[loser.clamp(0, M - 1).long()] == row_ids)
+    lid = torch.where(live, loser, M)
+    lcl = lid.clamp(0, M - 1).long()
+    wcl = torch.where(live, winner, M).clamp(0, M - 1).long()
+    lo_kf = torch.where(live[:, None], state.mp_obs_kf[lcl], -1)    # [B, O]
+    lo_feat = state.mp_obs_feat[lcl]
+    wo_kf = state.mp_obs_kf[wcl]
+
+    # does the winner already observe this keyframe?
+    dup = torch.any((lo_kf[:, :, None] == wo_kf[:, None, :]) & (wo_kf[:, None, :] >= 0), dim=-1)
+    valid_o = lo_kf >= 0
+    transfer = valid_o & ~dup
+
+    winner_b = winner[:, None].expand(B, O)
+    kf_mp_idx = _set_drop_2d(
+        state.kf_mp_idx, torch.where(valid_o, lo_kf, K).reshape(-1),
+        lo_feat.clamp(0, N - 1).reshape(-1),
+        torch.where(transfer, winner_b, -1).reshape(-1))
+
+    # append the transferred observations to the winner's list
+    n_w = state.mp_n_obs[wcl]
+    slot = n_w[:, None] + torch.cumsum(transfer.to(torch.int32), dim=1) - 1
+    keep = transfer & (slot < O)
+    w_idx = torch.where(keep, winner_b, M).reshape(-1)
+    s_idx = slot.clamp(0, O - 1).reshape(-1)
+    mp_obs_kf = _set_drop_2d(state.mp_obs_kf, w_idx, s_idx, torch.where(keep, lo_kf, -1).reshape(-1))
+    mp_obs_feat = _set_drop_2d(state.mp_obs_feat, w_idx, s_idx, torch.where(keep, lo_feat, -1).reshape(-1))
+    wid = torch.where(live, winner, M)
+    mp_n_obs = add_drop_(state.mp_n_obs.clone(), wid, keep.sum(dim=1))
+
+    # clear + invalidate the loser, move its counters to the winner
+    mp_obs_kf = set_drop(mp_obs_kf, lid, -1)
+    mp_obs_feat = set_drop(mp_obs_feat, lid, -1)
+    mp_n_obs = set_drop(mp_n_obs, lid, 0)
+    mp_valid = set_drop(state.mp_valid, lid, False)
+    mp_visible = add_drop_(state.mp_visible.clone(), wid, state.mp_visible[lcl])
+    mp_found = add_drop_(state.mp_found.clone(), wid, state.mp_found[lcl])
+    return state._replace(
+        kf_mp_idx=kf_mp_idx, mp_valid=mp_valid,
+        mp_obs_kf=mp_obs_kf, mp_obs_feat=mp_obs_feat, mp_n_obs=mp_n_obs,
+        mp_visible=mp_visible, mp_found=mp_found,
+    )
 
 
 def _distill_descriptors(state: MapState, mp_ids: torch.Tensor) -> MapState:

@@ -26,21 +26,38 @@ def topk_bounded(x: torch.Tensor, k: int):
     return v, i
 
 
+def last_of_duplicates(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """bool mask over ``idx [B]``: True at the last occurrence of each value
+    (values outside ``[0, n)`` are all False).  Makes a scatter with
+    repeated targets deterministic: keeping the last writer reproduces the
+    sequential last-write-wins order of XLA:CPU, while ``index_put_`` with
+    duplicates is unordered on CUDA (and on a parallel CPU loop)."""
+    flat = idx.reshape(-1)
+    ok = (flat >= 0) & (flat < n)
+    tgt = torch.where(ok, flat, n).long()
+    order = torch.arange(flat.shape[0], device=idx.device)
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=idx.device)
+    last = last.scatter_reduce(0, tgt, order, reduce="amax")
+    return (ok & (last[tgt] == order)).reshape(idx.shape)
+
+
 def set_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """``x.at[idx].set(val, mode="drop")`` along dim 0, out of place.
 
     Writes through a buffer one row longer: out-of-range indices land in the
     scratch row, which is sliced away.  A Python scalar ``val`` is filled by
-    the kernel (a scalar set-item would copy it from the host).
+    the kernel (a scalar set-item would copy it from the host).  A tensor
+    ``val`` with repeated indices keeps the last row's value on every device
+    (``last_of_duplicates``).
     """
     n = x.shape[0]
     buf = torch.cat([x, x[:1]])
-    ok = (idx >= 0) & (idx < n)
-    idx = torch.where(ok, idx, n).long()
     if torch.is_tensor(val):
+        idx = torch.where(last_of_duplicates(idx, n), idx, n).long()
         buf.index_put_((idx,), val.to(buf.dtype))
     else:
-        buf.index_fill_(0, idx, val)
+        ok = (idx >= 0) & (idx < n)
+        buf.index_fill_(0, torch.where(ok, idx, n).long(), val)
     return buf[:n]
 
 

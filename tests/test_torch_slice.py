@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from test_torch_mapping import two_torch_threads  # noqa: F401  (autouse)
 
 import orb_slam2_ros2_tpu.config as jcfg
 import orb_slam2_ros2_tpu_torch.config as tcfg
@@ -107,6 +108,30 @@ def test_unported_modes_are_refused(refused):
         cfg = small_cfg(tcfg, only_tracking=False)
     with pytest.raises(NotImplementedError):
         TSLAM(cfg, device="cpu", **kw)
+
+
+def test_initialization_seeds_like_jax(frames):
+    """Keyframe 0 is topped up to ``insert_keyframe``'s default floor of 100
+    seeds with the nearest far points, as the JAX system's initialization
+    does: ``mapping.seed_far_floor`` (here 40) applies to later keyframes
+    only.  A close-depth threshold of 4 m leaves fewer close points than
+    either floor, so the floor decides the count."""
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import empty_map, insert_keyframe
+
+    def cfg(mod):
+        c = small_cfg(mod, th_depth=8.0)
+        return c.replace(mapping=dataclasses.replace(c.mapping, seed_far_floor=40))
+
+    _, sj = JSLAM(cfg(jcfg), enable_loop_closing=False).track(*frames[0][:2])
+    ts = TSLAM(cfg(tcfg), enable_loop_closing=False, device="cpu")
+    _, st = ts.track(*frames[0][:2])
+    assert st["n_mappoints"] == sj["n_mappoints"] == 100
+    c = cfg(tcfg)
+    seeded_40, _ = insert_keyframe(
+        empty_map(c, "cpu"), ts.last.frame, torch.eye(4), torch.full_like(ts.last.mp_ids, -1), 0,
+        ts.cam, depth_threshold=c.camera.baseline * c.tracking.th_depth,
+        scale_factor=c.orb.scale_factor, n_levels=c.orb.n_levels, seed_floor=40)
+    assert int(seeded_40.next_mp) == 40
 
 
 def test_lost_frame_reports_no_vocab(frames):

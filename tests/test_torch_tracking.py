@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_mapping import two_torch_threads  # noqa: F401  (autouse)
 
 import orb_slam2_ros2_tpu.config as jcfg
 import orb_slam2_ros2_tpu_torch.config as tcfg
