@@ -26,8 +26,10 @@ Phases (one line each; any failure raises and exits non-zero):
      ≥ 2 — keyframe programs included — run under
      ``set_sync_debug_mode("error")``;
   7. times: per-frame ms of both phases, keyframe-program spans (CUDA
-     events), and each kernel against its plain version at the main-path
-     shapes (CUDA events, median of 20 runs).
+     events), and each kernel's device time at the main-path shapes
+     (``device_ms``: back-to-back calls between one event pair, over the
+     count) beside its plain version, its bound and, for K2, the one
+     PyTorch call that gathers the same windows.
 
 Before the last line come a JSON object with one entry per kernel (launches
 summed over the localization and mapping runs) and the card line; the last
@@ -61,7 +63,16 @@ SPEED = 0.35            # m/frame: the default world tracks at this speed
 MAX_TRANS_ERR_M = 0.05
 MIN_MEDIAN_INLIERS = 300
 FAST_TH = 7.0           # SLAMConfig().orb.min_th_fast
-TIMING_RUNS = 20
+TIMED_RUNS = 100        # back-to-back calls between one event pair
+SLEEP_CYCLES = 20_000_000  # device sleep queued ahead of them (~10 ms)
+# published H100 SXM peaks (on-chip-measurement guide): HBM3 bytes/s, f32 ops/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# FAST-9/16 + 3x3 NMS per pixel: 16 ring subtractions, 2 x 47 min/max for the
+# best 9-arc of each sign (8 pair-mins + 8 + 8 doubling mins at odd offsets,
+# 8 maxes of the two arc ends, 8 mins, 7 maxes), 1 max of the signs, 1
+# threshold compare, 8 maxes and 1 compare of the 3x3 suppression
+K1_OPS_PER_PIXEL = 16 + 2 * 47 + 1 + 1 + 8 + 1
 # mapping phase: the KITTI-like world of bench_full.py (facades 10-30 m, sky)
 MAP_FRAMES = 40
 MAP_SPEED = 0.8
@@ -79,20 +90,61 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms over ``runs`` CUDA-event-timed calls."""
+def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 5, queue_ahead: bool = True) -> float:
+    """Device time of one call of ``fn`` in ms: ``runs`` calls back to back
+    between one CUDA event pair, divided by ``runs``.
+
+    With ``queue_ahead`` a device sleep is queued before the start event, so
+    the host enqueues every call while the device still sleeps and the pair
+    holds no host dispatch; it raises if the host could not get ahead even
+    with a longer sleep.  Without it (the plain versions: hundreds of small
+    launches a call) host gaps may remain inside the pair.
+    """
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        ev0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        if queue_ahead:
+            ev0.record()
+            torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for _ in range(runs):
+            fn()
         end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1000.0
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if not queue_ahead or enqueue_ms < ev0.elapsed_time(start):
+            return start.elapsed_time(end) / runs
+        cycles *= 4
+    raise AssertionError(f"the host needed {enqueue_ms:.3f} ms to enqueue {runs} calls, "
+                         f"longer than the device sleep ahead of them")
+
+
+def k1_bound_ms(levels) -> tuple:
+    """(bound ms, what binds) of FAST + 3×3 NMS over ``levels`` on the card:
+    each input pixel read once (bf16), each score written once (bf16), and
+    K1_OPS_PER_PIXEL operations per pixel at the f32 peak."""
+    px = sum(x.numel() for x in levels)
+    t_bytes = 4.0 * px / HBM_BYTES_PER_S
+    t_ops = K1_OPS_PER_PIXEL * px / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def k2_bound_ms(canvas, centers) -> tuple:
+    """(bound ms, "bytes") of the patch gather: the f32 patches written once
+    and the canvas pixels they cover (the union of this run's windows) read
+    once; a bf16 → f32 copy has no arithmetic to bind it."""
+    h, w = canvas.shape
+    y, x = patches._origins(centers.long(), h, w)
+    cover = torch.zeros((h, w), dtype=torch.bool, device=canvas.device)
+    rows = y[:, None, None] + torch.arange(patches.PATCH_ROWS, device=canvas.device)[None, :, None]
+    cols = x[:, None, None] + torch.arange(patches.PATCH_COLS, device=canvas.device)[None, None, :]
+    cover[rows, cols] = True
+    n_bytes = 2.0 * int(cover.sum()) + 4.0 * centers.shape[0] * patches.PATCH_ROWS * patches.PATCH_COLS
+    return n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def k1_inputs(cfg: SLAMConfig, gen: torch.Generator):
@@ -315,27 +367,47 @@ def main() -> int:
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
-    k1_ms = cuda_ms(lambda: [fast.fast_score_nms(x, FAST_TH) for x in levels])
-    k1_plain = cuda_ms(lambda: [fast.nms3(fast.fast_score(x, FAST_TH)) for x in levels])
-    k2_ms = cuda_ms(lambda: patches.extract_patches_48x64(canvas, centers))
-    k2_plain = cuda_ms(lambda: patches.extract_patches_plain(canvas, centers))
+    k1_outs = [torch.empty_like(x) for x in levels]
+    k1_ms = device_ms(lambda: [fast.fast_score_nms(x, FAST_TH, out=o)
+                               for x, o in zip(levels, k1_outs)], runs=50)
+    k1_plain = device_ms(lambda: [fast.nms3(fast.fast_score(x, FAST_TH)) for x in levels],
+                         runs=10, queue_ahead=False)
+    k1_bound, k1_by = k1_bound_ms(levels)
+    k2_out = torch.empty((centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
+                         dtype=torch.float32, device="cuda")
+    k2_ms = device_ms(lambda: patches.extract_patches_48x64(canvas, centers, out=k2_out))
+    k2_plain = device_ms(lambda: patches.extract_patches_plain(canvas, centers),
+                         runs=20, queue_ahead=False)
+    y, x = patches._origins(centers.long(), *canvas.shape)
+    rows = y[:, None, None] + torch.arange(patches.PATCH_ROWS, device="cuda")[None, :, None]
+    cols = x[:, None, None] + torch.arange(patches.PATCH_COLS, device="cuda")[None, None, :]
+    k2_lib = device_ms(lambda: canvas[rows, cols])
+    k2_bound, k2_by = k2_bound_ms(canvas, centers)
     print(f"[7/7] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
           f"{json.dumps(summary['program_span_ms'])} | peak device memory "
-          f"{summary['peak_mem_mib']:.1f} MiB | fast_nms (8 levels) {k1_ms:.4f} ms vs plain "
-          f"{k1_plain:.4f} ms | patches {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms", flush=True)
+          f"{summary['peak_mem_mib']:.1f} MiB", flush=True)
+    print(f"[7/7] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images) "
+          f"{k1_ms:.5f} vs plain {k1_plain:.4f}, bound {k1_bound * 1e3:.3f} us ({k1_by}), share "
+          f"{k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} vs plain {k2_plain:.4f}, library "
+          f"canvas[rows, cols] {k2_lib:.5f}, bound {k2_bound * 1e3:.3f} us ({k2_by}), share "
+          f"{k2_bound / k2_ms:.3f}", flush=True)
 
     kernels = [
         {"name": "fast_nms", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/fast_nms.cu",
          "replaces": "orb_slam2_ros2_tpu/ops/pallas_fast.py:109",
          "launches": launches["fast_nms"] + map_launches["fast_nms"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": None, "bound_us": k1_bound * 1e3,
+         "share": k1_bound / k1_ms},
         {"name": "patches", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/patches.cu",
          "replaces": "orb_slam2_ros2_tpu/ops/pallas_patches.py:116",
          "launches": launches["patches"] + map_launches["patches"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": k2_lib, "bound_us": k2_bound * 1e3,
+         "share": k2_bound / k2_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -57,6 +57,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def _start_nvcc(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns the job."""
+    so = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return so, tmp, time.perf_counter(), proc
+
+
+def _finish_nvcc(name: str, so: Path, tmp: Path, t0: float, proc) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    build_seconds[name] = time.perf_counter() - t0
+    (BUILD_DIR / f"{name}.ptxas.log").write_text(log)
+    os.replace(tmp, so)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The bound library for ``csrc/<name>.cu``, compiling it if needed.
     Raises when nvcc is missing or fails."""
@@ -66,16 +85,7 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         so = library_path(name)
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-            build_seconds[name] = time.perf_counter() - t0
-            (BUILD_DIR / f"{name}.ptxas.log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
+            _finish_nvcc(name, *_start_nvcc(name))
         lib = ctypes.CDLL(str(so))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             f = getattr(lib, fn)
@@ -86,7 +96,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict:
-    """Compile and load every kernel library; returns ``{name: CDLL}``."""
+    """Compile every kernel library, one nvcc per source all started
+    together, and load them; returns ``{name: CDLL}``."""
+    with _lock:
+        jobs = {name: _start_nvcc(name) for name in SIGNATURES
+                if name not in _libs and not library_path(name).exists()}
+        for name, job in jobs.items():
+            _finish_nvcc(name, *job)
     return {name: load(name) for name in SIGNATURES}
 
 

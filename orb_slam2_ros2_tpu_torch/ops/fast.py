@@ -76,15 +76,18 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= pooled, score, 0.0)
 
 
-def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True) -> torch.Tensor:
-    """FAST score map of bf16 ``img [B, H, W]``, 3×3-suppressed when ``nms``.
+def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """FAST score map of bf16 ``img [B, H, W]``, 3×3-suppressed when ``nms``,
+    written into ``out`` when given (same shape and dtype as ``img``).
 
     CUDA tensors go through the ``fast_nms`` kernel (one launch); CPU tensors
     through the plain version.  Anything else raises.
     """
     if img.device.type == "cpu":
         score = fast_score(img, threshold)
-        return nms3(score) if nms else score
+        score = nms3(score) if nms else score
+        return score if out is None else out.copy_(score)
     if img.device.type != "cuda":
         raise ValueError(f"fast_score_nms: unsupported device {img.device}")
     if img.dtype != torch.bfloat16 or img.dim() != 3 or not img.is_contiguous():
@@ -93,7 +96,11 @@ def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True) -> tor
             f"got {img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}"
         )
     B, H, W = img.shape
-    out = torch.empty_like(img)
+    if out is None:
+        out = torch.empty_like(img)
+    elif out.shape != img.shape or out.dtype != img.dtype or out.device != img.device \
+            or not out.is_contiguous():
+        raise ValueError("fast_score_nms: out must be a contiguous tensor like img")
     if img.numel() == 0:
         return out
     lib = _build.load("fast_nms")

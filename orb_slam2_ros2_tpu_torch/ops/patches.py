@@ -42,11 +42,14 @@ def extract_patches_plain(canvas: torch.Tensor, centers_yx: torch.Tensor) -> tor
     return canvas[rows, cols].float()
 
 
-def extract_patches_48x64(canvas: torch.Tensor, centers_yx: torch.Tensor) -> torch.Tensor:
+def extract_patches_48x64(canvas: torch.Tensor, centers_yx: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel on a CUDA canvas (bf16 [H, W], int32 [N, 2] centres), the
-    plain gather on a CPU canvas; anything else raises."""
+    plain gather on a CPU canvas; anything else raises.  Writes into ``out``
+    (f32 [N, 48, 64]) when given."""
     if canvas.device.type == "cpu":
-        return extract_patches_plain(canvas, centers_yx)
+        p = extract_patches_plain(canvas, centers_yx)
+        return p if out is None else out.copy_(p)
     if canvas.device.type != "cuda":
         raise ValueError(f"extract_patches_48x64: unsupported device {canvas.device}")
     h, w = canvas.shape if canvas.dim() == 2 else (0, 0)
@@ -63,7 +66,12 @@ def extract_patches_48x64(canvas: torch.Tensor, centers_yx: torch.Tensor) -> tor
             f"{centers_yx.dtype} {tuple(centers_yx.shape)} on {centers_yx.device}"
         )
     n = centers_yx.shape[0]
-    out = torch.empty((n, PATCH_ROWS, PATCH_COLS), dtype=torch.float32, device=canvas.device)
+    shape = (n, PATCH_ROWS, PATCH_COLS)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=canvas.device)
+    elif out.shape != shape or out.dtype != torch.float32 or out.device != canvas.device \
+            or not out.is_contiguous():
+        raise ValueError(f"extract_patches_48x64: out must be a contiguous f32 {shape} tensor")
     lib = _build.load("patches")
     with torch.cuda.device(canvas.device):
         rc = lib.extract_patches_bf16(
