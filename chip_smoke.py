@@ -7,23 +7,25 @@ Phases (one line each; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit); no CUDA device → exit 1;
   2. build every CUDA kernel from ``orb_slam2_ros2_tpu_torch/csrc`` (nvcc);
   3. K1 ``fast_nms`` against its plain PyTorch version at the 8 KITTI pyramid
-     level shapes, batch 2, NMS on and off — bit-equal (``torch.equal``);
+     level shapes, batch 2, NMS on and off — bit-equal (``torch.equal``):
+     one launch over the stereo canvas holding both pyramids (as the
+     extractor calls it) and one launch per level;
   4. K2 ``patches`` against its plain version on the KITTI stereo canvas with
      4096 centres, corners and clamp edges included — bit-equal;
   5. localization: ``SLAM`` in localization mode at the full KITTI width of
      the default ``SLAMConfig`` on 10 synthetic stereo frames rendered on
      the card.  Every frame must track OK within 0.05 m of ground truth, the
-     median inlier count over frames 1-9 must reach 300, both kernels must
-     launch on every frame, and frames 2-9 run the frame program under
-     ``torch.cuda.set_sync_debug_mode("error")``;
+     median inlier count over frames 1-9 must reach 300, each kernel must
+     launch exactly once on every frame, and frames 2-9 run the frame
+     program under ``torch.cuda.set_sync_debug_mode("error")``;
   6. mapping: ``SLAM(enable_loop_closing=False)`` in the default mode (full
      SLAM, deferred mapping tail) at the default ``SLAMConfig`` with
      ``th_depth=60`` on 40 frames of the KITTI-like world (``box_scale=2.5``,
      sky, 0.8 m/frame).  Every frame must track OK, ≥ 4 keyframes must be
      inserted after keyframe 0, ≥ 1 local BA must run, after ``flush()`` the
      live ATE must stay under 5% and the final-trajectory ATE under 3% of
-     the path length, both kernels must launch on every frame, and frames
-     ≥ 2 — keyframe programs included — run under
+     the path length, each kernel must launch exactly once on every frame,
+     and frames ≥ 2 — keyframe programs included — run under
      ``set_sync_debug_mode("error")``;
   7. times: per-frame ms of both phases, keyframe-program spans (CUDA
      events), and each kernel's device time at the main-path shapes
@@ -52,8 +54,7 @@ from orb_slam2_ros2_tpu_torch import SLAMConfig
 from orb_slam2_ros2_tpu_torch.io.synthetic import SyntheticStereoDataset
 from orb_slam2_ros2_tpu_torch.io.trajectory import ate_rmse
 from orb_slam2_ros2_tpu_torch.ops import _build, fast, patches
-from orb_slam2_ros2_tpu_torch.ops.canvas import padded_canvas_shape
-from orb_slam2_ros2_tpu_torch.ops.pyramid import level_shapes
+from orb_slam2_ros2_tpu_torch.ops.canvas import canvas_layout, padded_canvas_shape
 from orb_slam2_ros2_tpu_torch.pipeline.system import SLAM
 from orb_slam2_ros2_tpu_torch.pipeline.tracking import TrackState
 from orb_slam2_ros2_tpu_torch.solvers import local_ba
@@ -69,10 +70,16 @@ SLEEP_CYCLES = 20_000_000  # device sleep queued ahead of them (~10 ms)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # FAST-9/16 + 3x3 NMS per pixel: 16 ring subtractions, 2 x 47 min/max for the
-# best 9-arc of each sign (8 pair-mins + 8 + 8 doubling mins at odd offsets,
-# 8 maxes of the two arc ends, 8 mins, 7 maxes), 1 max of the signs, 1
-# threshold compare, 8 maxes and 1 compare of the 3x3 suppression
+# best 9-arc of each sign (8 pair-mins and 8 four-run mins at odd starts, 3
+# for each of the 8 arc pairs, 7 maxes: csrc/fast_nms.cu best_arc), 1 max of
+# the signs, 1 threshold compare, 8 maxes and 1 compare of the 3x3
+# suppression
 K1_OPS_PER_PIXEL = 16 + 2 * 47 + 1 + 1 + 8 + 1
+# device ms of the previous designs, by device_ms on an NVIDIA H100 80GB HBM3
+# at 700 W (this script at commit e191f6b): K1 as 8 per-level launches of a
+# 32x8-tile kernel, K2 as one block per patch (its design is unchanged)
+K1_OLD_MS = 0.11962
+K2_OLD_MS = 0.02536
 # mapping phase: the KITTI-like world of bench_full.py (facades 10-30 m, sky)
 MAP_FRAMES = 40
 MAP_SPEED = 0.8
@@ -123,57 +130,76 @@ def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 5, queue_ahead: bool = T
                          f"longer than the device sleep ahead of them")
 
 
-def k1_bound_ms(levels) -> tuple:
-    """(bound ms, what binds) of FAST + 3×3 NMS over ``levels`` on the card:
-    each input pixel read once (bf16), each score written once (bf16), and
-    K1_OPS_PER_PIXEL operations per pixel at the f32 peak."""
-    px = sum(x.numel() for x in levels)
+def k1_bound_ms(table) -> tuple:
+    """(bound ms, what binds) of FAST + 3×3 NMS over the maps of ``table`` on
+    the card: each input pixel read once (bf16), each score written once
+    (bf16), and K1_OPS_PER_PIXEL operations per pixel at the f32 peak."""
+    px = table.out_numel
     t_bytes = 4.0 * px / HBM_BYTES_PER_S
     t_ops = K1_OPS_PER_PIXEL * px / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def k2_bound_ms(canvas, centers) -> tuple:
+def k2_windows(canvas, centers):
+    """Row and column index grids of every patch window, [N, 48, 1] and
+    [N, 1, 64]: ``canvas[rows, cols]`` is the patch gather."""
+    y, x = patches._origins(centers.long(), *canvas.shape)
+    rows = y[:, None, None] + torch.arange(patches.PATCH_ROWS, device=canvas.device)[None, :, None]
+    cols = x[:, None, None] + torch.arange(patches.PATCH_COLS, device=canvas.device)[None, None, :]
+    return rows, cols
+
+
+def k2_bound_ms(canvas, rows, cols) -> tuple:
     """(bound ms, "bytes") of the patch gather: the f32 patches written once
     and the canvas pixels they cover (the union of this run's windows) read
     once; a bf16 → f32 copy has no arithmetic to bind it."""
-    h, w = canvas.shape
-    y, x = patches._origins(centers.long(), h, w)
-    cover = torch.zeros((h, w), dtype=torch.bool, device=canvas.device)
-    rows = y[:, None, None] + torch.arange(patches.PATCH_ROWS, device=canvas.device)[None, :, None]
-    cols = x[:, None, None] + torch.arange(patches.PATCH_COLS, device=canvas.device)[None, None, :]
+    cover = torch.zeros(canvas.shape, dtype=torch.bool, device=canvas.device)
     cover[rows, cols] = True
-    n_bytes = 2.0 * int(cover.sum()) + 4.0 * centers.shape[0] * patches.PATCH_ROWS * patches.PATCH_COLS
+    n_bytes = 2.0 * int(cover.sum()) + 4.0 * rows.shape[0] * patches.PATCH_ROWS * patches.PATCH_COLS
     return n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def k1_inputs(cfg: SLAMConfig, gen: torch.Generator):
     """bf16 [2, Hl, Wl] levels at the config's pyramid shapes: uniform noise
-    with a flat block and a flat left band (score ties, NMS plateaus)."""
+    with a flat block, a flat left band and a flat block on the right edge
+    (score ties, NMS plateaus, ring wrap at the level's edge); and the stereo
+    canvas holding them as the extractor lays it out, with its table."""
     o, c = cfg.orb, cfg.camera
+    row_off, _, shapes = canvas_layout(c.height, c.width, o.n_levels, o.scale_factor)
+    rows_p, cols_p = padded_canvas_shape(c.height, c.width, o.n_levels, o.scale_factor)
     levels = []
-    for hl, wl in level_shapes(c.height, c.width, o.n_levels, o.scale_factor):
+    canvas = torch.zeros((2 * rows_p, cols_p), dtype=torch.bfloat16, device="cuda")
+    for off, (hl, wl) in zip(row_off.tolist(), shapes):
         x = torch.rand((2, hl, wl), generator=gen, device="cuda") * 255.0
         x[:, hl // 4: hl // 4 + 30, wl // 5: wl // 5 + 70] = 77.0
         x[:, :, :4] = 3.0
-        levels.append(x.to(torch.bfloat16).contiguous())
-    return levels
+        x[:, hl // 2: hl // 2 + 20, wl - 9:] = 140.0
+        x = x.to(torch.bfloat16).contiguous()
+        levels.append(x)
+        for b in range(2):
+            canvas[b * rows_p + off: b * rows_p + off + hl, :wl] = x[b]
+    table = fast.pyramid_table(tuple(row_off.tolist()), tuple(shapes), 2, rows_p, cols_p)
+    return levels, canvas, table
 
 
-def k1_check(levels) -> float:
-    """Raises unless the kernel equals the plain version; returns the max
-    absolute difference seen."""
+def k1_check(levels, canvas, table) -> float:
+    """Raises unless the kernel, over the whole canvas and level by level,
+    equals the plain version of each level; returns the max absolute
+    difference seen."""
     err = 0.0
     for nms in (True, False):
-        for x in levels:
+        maps = fast.fast_score_nms_pyramid(canvas, table, FAST_TH, nms=nms)
+        for x, pyr in zip(levels, maps):
             ker = fast.fast_score_nms(x, FAST_TH, nms=nms)
             ref = fast.fast_score(x, FAST_TH)
             ref = fast.nms3(ref) if nms else ref
             torch.cuda.synchronize()
-            if not torch.equal(ker, ref):
-                bad = int((ker != ref).sum())
-                raise AssertionError(f"fast_nms nms={nms} {tuple(x.shape)}: {bad} pixels differ")
-            err = max(err, float((ker.float() - ref.float()).abs().max()))
+            for what, got in (("pyramid", pyr), ("one level", ker)):
+                if not torch.equal(got, ref):
+                    bad = int((got != ref).sum())
+                    raise AssertionError(f"fast_nms {what} nms={nms} {tuple(x.shape)}: "
+                                         f"{bad} pixels differ")
+                err = max(err, float((got.float() - ref.float()).abs().max()))
     return err
 
 
@@ -203,9 +229,10 @@ def k2_check(canvas, centers) -> float:
     return float((ker - ref).abs().max())
 
 
-def _check_launches(i: int, cfg: SLAMConfig, k1: int, k2: int) -> None:
-    if k1 < cfg.orb.n_levels or k2 < 1:
-        raise AssertionError(f"frame {i}: kernel launches {k1}/{k2}")
+def _check_launches(i: int, k1: int, k2: int) -> None:
+    if k1 != 1 or k2 != 1:
+        raise AssertionError(f"frame {i}: kernel launches fast_nms {k1}, patches {k2}; "
+                             f"a frame launches each once")
 
 
 def run_slice(cfg: SLAMConfig):
@@ -237,7 +264,7 @@ def run_slice(cfg: SLAMConfig):
         print(f"[5/7] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
-        _check_launches(i, cfg, rec["fast_nms"], rec["patches"])
+        _check_launches(i, rec["fast_nms"], rec["patches"])
         records.append(rec)
     launches = {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches}
     slam.frame_sync_debug_mode = None
@@ -280,7 +307,7 @@ def run_mapping(cfg: SLAMConfig):
                    fast_nms=fast.fast_nms_launches - k1_before,
                    patches=patches.patch_launches - k2_before)
         print(f"[6/7] frame {i}: {json.dumps(rec)}", flush=True)
-        _check_launches(i, cfg, rec["fast_nms"], rec["patches"])
+        _check_launches(i, rec["fast_nms"], rec["patches"])
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -348,9 +375,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    levels = k1_inputs(cfg, gen)
-    k1_err = k1_check(levels)
-    print(f"[3/7] fast_nms: bit-equal to nms3(fast_score) on {len(levels)} levels "
+    levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
+    k1_err = k1_check(levels, k1_canvas, k1_table)
+    print(f"[3/7] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+          f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
@@ -367,33 +395,30 @@ def main() -> int:
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
-    k1_outs = [torch.empty_like(x) for x in levels]
-    k1_ms = device_ms(lambda: [fast.fast_score_nms(x, FAST_TH, out=o)
-                               for x, o in zip(levels, k1_outs)], runs=50)
+    k1_out = torch.empty(k1_table.out_numel, dtype=torch.bfloat16, device="cuda")
+    k1_ms = device_ms(lambda: fast.fast_score_nms_pyramid(k1_canvas, k1_table, FAST_TH, out=k1_out))
     k1_plain = device_ms(lambda: [fast.nms3(fast.fast_score(x, FAST_TH)) for x in levels],
                          runs=10, queue_ahead=False)
-    k1_bound, k1_by = k1_bound_ms(levels)
+    k1_bound, k1_by = k1_bound_ms(k1_table)
     k2_out = torch.empty((centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_ms = device_ms(lambda: patches.extract_patches_48x64(canvas, centers, out=k2_out))
     k2_plain = device_ms(lambda: patches.extract_patches_plain(canvas, centers),
                          runs=20, queue_ahead=False)
-    y, x = patches._origins(centers.long(), *canvas.shape)
-    rows = y[:, None, None] + torch.arange(patches.PATCH_ROWS, device="cuda")[None, :, None]
-    cols = x[:, None, None] + torch.arange(patches.PATCH_COLS, device="cuda")[None, None, :]
+    rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
-    k2_bound, k2_by = k2_bound_ms(canvas, centers)
+    k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
     print(f"[7/7] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
           f"{json.dumps(summary['program_span_ms'])} | peak device memory "
           f"{summary['peak_mem_mib']:.1f} MiB", flush=True)
-    print(f"[7/7] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images) "
-          f"{k1_ms:.5f} vs plain {k1_plain:.4f}, bound {k1_bound * 1e3:.3f} us ({k1_by}), share "
-          f"{k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} vs plain {k2_plain:.4f}, library "
-          f"canvas[rows, cols] {k2_lib:.5f}, bound {k2_bound * 1e3:.3f} us ({k2_by}), share "
-          f"{k2_bound / k2_ms:.3f}", flush=True)
+    print(f"[7/7] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+          f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
+          f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
+          f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
+          f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     kernels = [
         {"name": "fast_nms", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/fast_nms.cu",

@@ -2,12 +2,13 @@
 
 Port of ``orb_slam2_ros2_tpu/features/extractor.py`` (reference:
 src/ORBExtractor.cc:499-508, src/Frame.cc:85-111).  Both images of a stereo
-pair run through the same batched ops: [B, H, W] pyramids, one FAST+NMS
-kernel launch per level, one patch-gather kernel launch over a row-stacked
-canvas, and the stereo matcher reuses the gathered patches for SAD
-refinement.  Constant operators (resize weights, moment weights, the BRIEF
-sampling matrix) are placed on the device once, when the frontend is built,
-so a frame copies nothing from the host.
+pair run through the same batched ops: [B, H, W] pyramids written into one
+row-stacked canvas, one FAST+NMS kernel launch over every level of that
+canvas, one patch-gather kernel launch over it, and the stereo matcher
+reuses the gathered patches for SAD refinement.  Constant operators (resize
+weights, moment weights, the BRIEF sampling matrix) and the FAST kernel's
+level table are built once, when the frontend is built, so a frame copies
+nothing from the host.
 """
 
 from __future__ import annotations
@@ -43,16 +44,20 @@ class FrontendConstants(NamedTuple):
 
     pyramid: PyramidWeights
     row_off: torch.Tensor    # i32[n_levels] canvas row offset per level
+    fast_table: fast.PyramidTable  # where the FAST kernel finds each (image, level)
     mweights: torch.Tensor   # f32[patch_px, 2] grey-centroid weights
     pair_matrix: torch.Tensor  # f32[patch_px, 8192] folded-blur BRIEF matrix
 
 
 def frontend_constants(cfg: SLAMConfig, device) -> FrontendConstants:
+    """The operators of a frontend over a stereo pair."""
     o, c = cfg.orb, cfg.camera
-    row_off, _, _ = canvas_layout(c.height, c.width, o.n_levels, o.scale_factor)
+    row_off, _, shapes = canvas_layout(c.height, c.width, o.n_levels, o.scale_factor)
+    rows_p, cols_p = padded_canvas_shape(c.height, c.width, o.n_levels, o.scale_factor)
     return FrontendConstants(
         pyramid=pyramid_weights(c.height, c.width, o.n_levels, o.scale_factor, device),
         row_off=torch.from_numpy(row_off).to(device),
+        fast_table=fast.pyramid_table(tuple(row_off.tolist()), tuple(shapes), 2, rows_p, cols_p),
         mweights=brief.moment_weights(device),
         pair_matrix=brief.pair_matrix(device, _template_pair_matrix(cfg)),
     )
@@ -77,6 +82,8 @@ def extract_features_batch(
     """[B, H, W] images → (FrameFeatures with [B, N] leading dims,
     patches f32[B, N, 48, 64])."""
     B = imgs.shape[0]
+    if B != consts.fast_table.batch:
+        raise ValueError(f"the frontend's constants are for {consts.fast_table.batch} images, got {B}")
     dev = imgs.device
     levels = build_pyramid(imgs, n_levels, scale_factor, consts.pyramid)
     row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
@@ -90,9 +97,9 @@ def extract_features_batch(
             r0 = b * rows_p + int(row_off_np[l])
             canvas[r0:r0 + hl, :wl] = levels[l][b]
 
+    scores = fast.fast_score_nms_pyramid(canvas, consts.fast_table, min_th)  # [B, Hl, Wl] each
     uts, resps, valids, octs = [], [], [], []
-    for l in range(n_levels):
-        score = fast.fast_score_nms(levels[l].contiguous(), min_th)  # [B, Hl, Wl]
+    for l, score in enumerate(scores):
         uv_l, resp_l, valid_l = fast.select_keypoints(
             score, caps[l], border=border, cell=cell, topk_per_cell=4,
             strong_threshold=ini_th,
@@ -183,5 +190,5 @@ class StereoFrontend:
         return StereoFrame(feats=featL, right_u=right_u, depth=depth)
 
 
-def make_stereo_frontend(cfg: SLAMConfig, device) -> StereoFrontend:
+def make_stereo_frontend(cfg: SLAMConfig, device="cuda") -> StereoFrontend:
     return StereoFrontend(cfg, device)

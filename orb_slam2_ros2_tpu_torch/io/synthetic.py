@@ -143,7 +143,7 @@ class SyntheticStereoDataset:
 
     def __init__(self, cam_cfg, n_frames: int = 100, speed: float = 0.8,
                  circle: bool = False, box_scale: float = 1.0,
-                 sky: bool = False, *, device):
+                 sky: bool = False, *, device="cuda"):
         self.cfg = cam_cfg
         self.device = torch.device(device)
         self.poses_wc = circle_trajectory(n_frames) if circle else trajectory(n_frames, speed)

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported C functions of each source: name -> (argtypes, restype)
 SIGNATURES = {
-    "fast_nms": {"fast_nms_bf16": ([_P, _P, _I, _I, _I, _F, _I, _P], _I)},
+    "fast_nms": {"fast_nms_pyramid_bf16": ([_P, _P, _P, _F, _I, _P], _I)},
     "patches": {"extract_patches_bf16": ([_P, _P, _P, _I, _I, _I, _P], _I)},
 }
 

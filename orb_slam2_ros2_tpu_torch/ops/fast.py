@@ -5,16 +5,20 @@ once (16 rolled copies, a doubling min tree over 9-arcs), 3×3 non-max
 suppression, and per-cell top-k selection in place of the reference's
 quadtree (reference: src/ORBExtractor.cc:331-387, :19-192).
 
-``fast_score_nms`` is the entry the extractor calls: on a CUDA tensor it
-launches the hand-written kernel ``csrc/fast_nms.cu`` (the port of the TPU
-kernel ``ops/pallas_fast.py``); on a CPU tensor it runs the plain version
-``nms3(fast_score(x, th))`` beside it, with which the kernel is bit-exact on
-every pixel.
+``fast_score_nms_pyramid`` is the entry the extractor calls, once a frame:
+on a CUDA canvas it launches the hand-written kernel ``csrc/fast_nms.cu``
+(the port of the TPU kernel ``ops/pallas_fast.py``) once over every level of
+every image, as a ``PyramidTable`` places them in the row-stacked canvas; on
+a CPU canvas it runs the plain version ``nms3(fast_score(level, th))`` level
+by level, with which the kernel is bit-exact on every pixel.
+``fast_score_nms`` scores one ``[B, H, W]`` level with the same kernel.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +36,75 @@ CIRCLE_OFFSETS = np.array(
     dtype=np.int32,
 )
 
-# kernel launches made by fast_score_nms (one per call on a CUDA tensor)
+# kernel launches made by fast_score_nms_pyramid and fast_score_nms (one per
+# call on a CUDA tensor)
 fast_nms_launches = 0
+
+# the kernel's output tile and table capacity (csrc/fast_nms.cu OUT_W, OUT_H,
+# MAX_SEGS)
+TILE_W, TILE_H = 62, 30
+MAX_SEGS = 32
+
+
+class _LevelTable(ctypes.Structure):
+    """The kernel's ``LevelTable`` (csrc/fast_nms.cu), passed by value."""
+
+    _fields_ = [
+        ("n_segs", ctypes.c_int), ("row_stride", ctypes.c_int),
+        ("row_base", ctypes.c_int * MAX_SEGS), ("h", ctypes.c_int * MAX_SEGS),
+        ("w", ctypes.c_int * MAX_SEGS), ("tiles_x", ctypes.c_int * MAX_SEGS),
+        ("tile_start", ctypes.c_int * (MAX_SEGS + 1)), ("out_off", ctypes.c_int * MAX_SEGS),
+    ]
+
+
+class PyramidTable(NamedTuple):
+    """Where each (image, level) map lies in a row-stacked bf16 canvas and
+    where its scores go: the host-side table of one FAST launch.
+
+    ``segs`` rows are level-major, (image, level) = (b, l) at row
+    ``l * batch + b``: canvas row of the map's row 0 (column 0 is canvas
+    column 0), height, width, tiles across, first tile of the flat grid,
+    offset of its ``[Hl, Wl]`` scores in the flat output.
+    """
+
+    segs: np.ndarray           # i32 [S, 6]: row_base, Hl, Wl, tiles_x, tile_start, out_off
+    n_tiles: int               # grid size
+    canvas_shape: Tuple[int, int]
+    batch: int
+    level_shapes: Tuple[Tuple[int, int], ...]
+    level_out: Tuple[int, ...]  # offset of each level's [batch, Hl, Wl] block in the output
+    out_numel: int
+    cstruct: _LevelTable
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_table(row_offsets: Tuple[int, ...], level_shapes: Tuple[Tuple[int, int], ...],
+                  batch: int, image_rows: int, row_stride: int) -> PyramidTable:
+    """Table of the maps of ``batch`` images stacked every ``image_rows``
+    canvas rows, level ``l`` of each at row offset ``row_offsets[l]``."""
+    n = len(level_shapes) * batch
+    if n > MAX_SEGS:
+        raise ValueError(f"fast_nms: {n} (image, level) maps, the kernel takes {MAX_SEGS}")
+    segs, level_out = [], []
+    tiles = out = 0
+    for off, (hl, wl) in zip(row_offsets, level_shapes):
+        if off + hl > image_rows or wl > row_stride:
+            raise ValueError(f"fast_nms: level {hl}x{wl} at row {off} leaves the canvas image")
+        level_out.append(out)
+        tx = -(-wl // TILE_W)
+        for b in range(batch):
+            segs.append((b * image_rows + off, hl, wl, tx, tiles, out))
+            tiles += tx * -(-hl // TILE_H)
+            out += hl * wl
+    if out >= 2**31:
+        raise ValueError("fast_nms: output exceeds int32 offsets")
+    segs = np.array(segs, np.int32).reshape(-1, 6)
+    c = _LevelTable(n_segs=n, row_stride=row_stride)
+    for j, field in enumerate(("row_base", "h", "w", "tiles_x", "tile_start", "out_off")):
+        getattr(c, field)[:n] = segs[:, j].tolist()
+    c.tile_start[n] = tiles
+    return PyramidTable(segs, tiles, (batch * image_rows, row_stride), batch,
+                        tuple(level_shapes), tuple(level_out), out, c)
 
 
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -76,43 +147,65 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= pooled, score, 0.0)
 
 
-def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """FAST score map of bf16 ``img [B, H, W]``, 3×3-suppressed when ``nms``,
-    written into ``out`` when given (same shape and dtype as ``img``).
+def fast_score_nms_pyramid(canvas: torch.Tensor, table: PyramidTable, threshold: float,
+                           nms: bool = True, out: torch.Tensor | None = None) -> List[torch.Tensor]:
+    """FAST score maps of every level of the bf16 canvas ``table`` describes,
+    3×3-suppressed when ``nms``: one ``[batch, Hl, Wl]`` map per level, views
+    of one flat buffer (``out`` when given: bf16 ``[table.out_numel]``).
 
-    CUDA tensors go through the ``fast_nms`` kernel (one launch); CPU tensors
-    through the plain version.  Anything else raises.
+    A CUDA canvas goes through one launch of the ``fast_nms`` kernel; a CPU
+    canvas through the plain version, level by level.  Anything else raises.
     """
-    if img.device.type == "cpu":
-        score = fast_score(img, threshold)
-        score = nms3(score) if nms else score
-        return score if out is None else out.copy_(score)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_score_nms: unsupported device {img.device}")
-    if img.dtype != torch.bfloat16 or img.dim() != 3 or not img.is_contiguous():
-        raise ValueError(
-            f"fast_score_nms kernel takes a contiguous bf16 [B, H, W] tensor, "
-            f"got {img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}"
-        )
-    B, H, W = img.shape
+    shapes = table.level_shapes
+    if tuple(canvas.shape) != table.canvas_shape:
+        raise ValueError(f"fast_score_nms_pyramid: canvas {tuple(canvas.shape)}, the table "
+                         f"places its maps in {table.canvas_shape}")
+    if canvas.device.type == "cpu":
+        imgs = canvas.reshape(table.batch, -1, canvas.shape[-1])
+        maps = []
+        for l, (hl, wl) in enumerate(shapes):
+            r0 = int(table.segs[l * table.batch, 0])
+            score = fast_score(imgs[:, r0:r0 + hl, :wl], threshold)
+            maps.append(nms3(score) if nms else score)
+        if out is None:
+            return maps
+        return [o.copy_(m) for o, m in zip(_level_views(out, table), maps)]
+    if canvas.device.type != "cuda":
+        raise ValueError(f"fast_score_nms_pyramid: unsupported device {canvas.device}")
+    if canvas.dtype != torch.bfloat16 or not canvas.is_contiguous():
+        raise ValueError(f"fast_nms kernel takes a contiguous bf16 canvas, got {canvas.dtype} "
+                         f"contiguous={canvas.is_contiguous()}")
     if out is None:
-        out = torch.empty_like(img)
-    elif out.shape != img.shape or out.dtype != img.dtype or out.device != img.device \
-            or not out.is_contiguous():
-        raise ValueError("fast_score_nms: out must be a contiguous tensor like img")
-    if img.numel() == 0:
-        return out
+        out = torch.empty(table.out_numel, dtype=torch.bfloat16, device=canvas.device)
+    elif (out.dtype != torch.bfloat16 or out.shape != (table.out_numel,)
+          or out.device != canvas.device or not out.is_contiguous()):
+        raise ValueError(f"fast_score_nms_pyramid: out must be a contiguous bf16 "
+                         f"[{table.out_numel}] tensor on {canvas.device}")
     lib = _build.load("fast_nms")
-    with torch.cuda.device(img.device):
-        rc = lib.fast_nms_bf16(
-            img.data_ptr(), out.data_ptr(), B, H, W, float(threshold), int(bool(nms)),
-            torch.cuda.current_stream(img.device).cuda_stream,
+    with torch.cuda.device(canvas.device):
+        rc = lib.fast_nms_pyramid_bf16(
+            canvas.data_ptr(), out.data_ptr(), ctypes.addressof(table.cstruct),
+            float(threshold), int(bool(nms)), torch.cuda.current_stream(canvas.device).cuda_stream,
         )
     _build.check_launch(rc, "fast_nms")
     global fast_nms_launches
     fast_nms_launches += 1
-    return out
+    return _level_views(out, table)
+
+
+def _level_views(out: torch.Tensor, table: PyramidTable) -> List[torch.Tensor]:
+    return [out[o:o + table.batch * hl * wl].view(table.batch, hl, wl)
+            for o, (hl, wl) in zip(table.level_out, table.level_shapes)]
+
+
+def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True) -> torch.Tensor:
+    """FAST score map of bf16 ``img [B, H, W]``, 3×3-suppressed when ``nms``:
+    a one-level call of ``fast_score_nms_pyramid``."""
+    if img.dim() != 3:
+        raise ValueError(f"fast_score_nms takes [B, H, W], got {tuple(img.shape)}")
+    B, H, W = img.shape
+    table = pyramid_table((0,), ((H, W),), B, H, W)
+    return fast_score_nms_pyramid(img.reshape(B * H, W), table, threshold, nms)[0]
 
 
 def select_keypoints(

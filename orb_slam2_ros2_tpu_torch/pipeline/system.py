@@ -290,7 +290,7 @@ class SLAM:
     System.h:55-61), ``flush()`` at the end of the sequence."""
 
     def __init__(self, cfg: SLAMConfig, rgbd: bool = False,
-                 enable_loop_closing: bool = True, *, device):
+                 enable_loop_closing: bool = True, *, device="cuda"):
         if rgbd:
             raise NotImplementedError("rgbd=True: the RGB-D frontend is not ported yet (ROADMAP port queue: RGB-D frontend)")
         if cfg.tracking.pipelined:
