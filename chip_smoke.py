@@ -66,7 +66,7 @@ MIN_MEDIAN_INLIERS = 300
 FAST_TH = 7.0           # SLAMConfig().orb.min_th_fast
 TIMED_RUNS = 100        # back-to-back calls between one event pair
 SLEEP_CYCLES = 20_000_000  # device sleep queued ahead of them (~10 ms)
-# published H100 SXM peaks (on-chip-measurement guide): HBM3 bytes/s, f32 ops/s
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # FAST-9/16 + 3x3 NMS per pixel: 16 ring subtractions, 2 x 47 min/max for the

@@ -25,9 +25,10 @@
 // pyramids (3.4 us at 3.35 TB/s), against ~121 operations a pixel (16
 // subtractions, 2 x 47 min/max for the best 9-arc of each sign, the
 // threshold, the 3x3 suppression): 0.35 G operations, 5.2 us at the f32 peak
-// of 67 T/s.  The min/max and the f32 -> bf16 conversions issue on the SM's
-// half-rate integer pipe (16 lanes a clock per scheduler), so the issue rate
-// of those ~45 instructions a pixel is what the design works against.
+// of 67 T/s.  On the card the min/max (bf16x2 or f32), the f32 -> bf16
+// packs, byte permutes, IMAD and IADD3 run at half the rate of FADD and
+// LOP3 (16 lanes a clock per scheduler), so the ~45 such instructions a
+// scored pixel of the arithmetic alone are what the design works against.
 // Design:
 //   * one launch: persistent blocks walk a flat list of every (image, level,
 //     tile); a block finds a tile's level in the table's prefix of tile
@@ -36,14 +37,17 @@
 //     as a 64x32 score tile: the halo costs 10% extra scores (33% for the
 //     32x8 tile of the per-level design);
 //   * the 70x38 input tile (score tile + ring radius) is staged in shared
-//     memory as f32; an interior tile's input is read as 4-byte words into
-//     registers while the block scores the tile before it;
+//     memory as f32: an interior tile's input as 4-byte words, an edge
+//     tile's through per-row and per-column wrap tables, each thread at
+//     fixed coordinates of the tile, issuing all its loads before its first
+//     store (most instructions here run at half rate, so the staging's
+//     index arithmetic is kept out of the per-pixel loop);
 //   * each thread scores one column of 8 pixels as 4 vertical pairs packed in
 //     bf16x2, a warp's 32 columns reading 32 consecutive words of the tile;
 //   * the best 9-arc of each sign takes 47 two-input min/max instead of the
 //     doubling tree's 79 (arcs k and k+1, k even, share v[k+1..k+8], so the
 //     better of the two is min(min(v[k+1..k+8]), max(v[k], v[k+9]))), which
-//     the compiler issues as ~36 instructions, many of them three-input
+//     the compiler emits as ~36 instructions, many of them three-input
 //     (VHMNMX), for two pixels at once;
 //   * the threshold and the suppression stay packed: scores go to shared
 //     memory as bf16x2 row pairs, and each pair's 3x3 maximum is three
@@ -120,44 +124,19 @@ __device__ __forceinline__ Tile locate(const LevelTable& tab, int id) {
 
 // Input tile staging.  A tile whose input lies inside its map, in a canvas of
 // even row stride, is read as 4-byte words (two pixels; the input tile starts
-// at an even column) into registers while the previous tile is scored.  A
-// tile at a map's edge, whose ring pixels wrap around the map, is read pixel
-// by pixel when it is staged.
-constexpr int IWW = IW / 2;                                 // words per input row
-constexpr int WLOADS = (IH * IWW + THREADS - 1) / THREADS;  // words per thread
+// at an even column).  A tile at a map's edge, whose ring pixels wrap around
+// the map, is read pixel by pixel.  Each thread starts all its loads before
+// its first shared store.
+constexpr int IWW = IW / 2;                  // words per input row
+constexpr int WROWS = THREADS / IWW;         // input rows a pass of word loads covers
+constexpr int WLOADS = (IH + WROWS - 1) / WROWS;
+constexpr int PROWS = THREADS / IW;          // input rows a pass of pixel loads covers
+constexpr int PLOADS = (IH + PROWS - 1) / PROWS;
 static_assert(IW % 2 == 0 && OUT_W % 2 == 0, "word staging");
 
 __device__ __forceinline__ bool by_words(const LevelTable& tab, const Tile& t) {
   return (tab.row_stride & 1) == 0 && t.sy >= RING && t.sy - RING + IH <= tab.h[t.s] &&
          t.sx >= RING && t.sx - RING + IW <= tab.w[t.s];
-}
-
-__device__ __forceinline__ void fetch_words(const LevelTable& tab,
-                                            const __nv_bfloat16* __restrict__ canvas,
-                                            const Tile& t, unsigned w[WLOADS]) {
-  const int stride = tab.row_stride;
-  const unsigned* base = reinterpret_cast<const unsigned*>(
-      canvas + (size_t)(tab.row_base[t.s] + t.sy - RING) * stride + (t.sx - RING));
-#pragma unroll
-  for (int j = 0; j < WLOADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if (i < IH * IWW) {
-      const int r = i / IWW;
-      w[j] = __ldg(base + (size_t)r * (stride / 2) + (i - r * IWW));
-    }
-  }
-}
-
-__device__ __forceinline__ void stash_words(float (*tile)[IW], const unsigned w[WLOADS]) {
-#pragma unroll
-  for (int j = 0; j < WLOADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if (i < IH * IWW) {
-      const int r = i / IWW;
-      *reinterpret_cast<float2*>(&tile[r][2 * (i - r * IWW)]) =
-          make_float2(__uint_as_float(w[j] << 16), __uint_as_float(w[j] & 0xFFFF0000u));
-    }
-  }
 }
 
 // v modulo n: one add or subtract for v in [-n, 2n), a division beyond that
@@ -172,15 +151,49 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v;
 }
 
+// Threads of the first WROWS * IWW read word column wc of input rows wr,
+// wr + WROWS, ...; the others idle.
+__device__ __forceinline__ void stage_words(const LevelTable& tab,
+                                            const __nv_bfloat16* __restrict__ canvas,
+                                            const Tile& t, float (*tile)[IW], int wr, int wc) {
+  if (wr >= WROWS) return;
+  const size_t stride = tab.row_stride / 2;
+  const unsigned* src = reinterpret_cast<const unsigned*>(
+                            canvas + (size_t)(tab.row_base[t.s] + t.sy - RING) * tab.row_stride +
+                            (t.sx - RING)) + wr * stride + wc;
+  unsigned w[WLOADS];
+#pragma unroll
+  for (int j = 0; j < WLOADS; ++j)
+    if (wr + j * WROWS < IH) w[j] = __ldg(src + j * WROWS * stride);
+#pragma unroll
+  for (int j = 0; j < WLOADS; ++j)
+    if (wr + j * WROWS < IH)
+      *reinterpret_cast<float2*>(&tile[wr + j * WROWS][2 * wc]) =
+          make_float2(__uint_as_float(w[j] << 16), __uint_as_float(w[j] & 0xFFFF0000u));
+}
+
+// An edge tile: each input row's wrapped canvas offset and each input
+// column's wrapped column are computed once, into shared memory; threads of
+// the first PROWS * IW then read column pc of input rows pr, pr + PROWS, ...
 __device__ __forceinline__ void stage_pixels(const LevelTable& tab,
                                              const __nv_bfloat16* __restrict__ canvas,
-                                             const Tile& t, float (*tile)[IW]) {
-  const int H = tab.h[t.s], W = tab.w[t.s], stride = tab.row_stride;
-  const __nv_bfloat16* img = canvas + (size_t)tab.row_base[t.s] * stride;
-  for (int i = threadIdx.x; i < IH * IW; i += THREADS) {
-    const int r = i / IW, c = i - r * IW;
-    tile[r][c] = __bfloat162float(img[(size_t)wrap(t.sy - RING + r, H) * stride + wrap(t.sx - RING + c, W)]);
-  }
+                                             const Tile& t, float (*tile)[IW], int* row_off,
+                                             int* col_at, int pr, int pc) {
+  const int stride = tab.row_stride;
+  if (threadIdx.x < IH)
+    row_off[threadIdx.x] = (tab.row_base[t.s] + wrap(t.sy - RING + (int)threadIdx.x, tab.h[t.s])) * stride;
+  else if (threadIdx.x < IH + IW)
+    col_at[threadIdx.x - IH] = wrap(t.sx - RING + (int)threadIdx.x - IH, tab.w[t.s]);
+  __syncthreads();
+  if (pr >= PROWS) return;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(canvas) + col_at[pc];
+  unsigned v[PLOADS];
+#pragma unroll
+  for (int j = 0; j < PLOADS; ++j)
+    if (pr + j * PROWS < IH) v[j] = __ldg(src + row_off[pr + j * PROWS]);
+#pragma unroll
+  for (int j = 0; j < PLOADS; ++j)
+    if (pr + j * PROWS < IH) tile[pr + j * PROWS][pc] = __uint_as_float(v[j] << 16);
 }
 
 template <bool NMS>
@@ -188,6 +201,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fast_nms_kernel(const __nv_bfloat16* __restrict__ canvas, __nv_bfloat16* __restrict__ out,
                 const __grid_constant__ LevelTable tab, unsigned short th_floor) {
   __shared__ float tile[IH][IW];
+  __shared__ int row_off[IH], col_at[IW];  // an edge tile's wrapped rows and columns
   __shared__ bf2 sc[NMS ? SH / 2 : 1][SW];  // scores, row pairs, -inf outside the map
 
   // Bresenham ring of radius 3, clockwise from 12 o'clock (ops/fast.py CIRCLE_OFFSETS)
@@ -198,28 +212,18 @@ fast_nms_kernel(const __nv_bfloat16* __restrict__ canvas, __nv_bfloat16* __restr
   const int n_tiles = tab.tile_start[tab.n_segs];
   const int c = threadIdx.x % SW;
   const int r0 = (threadIdx.x / SW) * RPT;
+  const int wr = threadIdx.x / IWW, wc = threadIdx.x % IWW;  // word staging
+  const int pr = threadIdx.x / IW, pc = threadIdx.x % IW;    // pixel staging
 
-  // persistent blocks: the next tile's words are read while this one is scored
-  int id = blockIdx.x;
-  Tile cur = locate(tab, id);
-  bool words = by_words(tab, cur);
-  unsigned w[WLOADS];
-  if (words) fetch_words(tab, canvas, cur, w);
-  for (;;) {
+  // persistent blocks, each walking the tiles id, id + gridDim.x, ...
+  for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
+    const Tile cur = locate(tab, id);
     __syncthreads();  // the previous tile is no longer read
-    if (words)
-      stash_words(tile, w);
+    if (by_words(tab, cur))
+      stage_words(tab, canvas, cur, tile, wr, wc);
     else
-      stage_pixels(tab, canvas, cur, tile);
+      stage_pixels(tab, canvas, cur, tile, row_off, col_at, pr, pc);
     __syncthreads();
-    const int next = id + gridDim.x;
-    Tile nxt = cur;
-    bool next_words = false;
-    if (next < n_tiles) {
-      nxt = locate(tab, next);
-      next_words = by_words(tab, nxt);
-      if (next_words) fetch_words(tab, canvas, nxt, w);
-    }
 
     const int H = tab.h[cur.s], W = tab.w[cur.s];
     const int lx = cur.sx + c;
@@ -280,10 +284,6 @@ fast_nms_kernel(const __nv_bfloat16* __restrict__ canvas, __nv_bfloat16* __restr
         if (r + 1 <= OUT_H && ly + 1 < H) o[(size_t)(ly + 1) * W] = __high2bfloat16(sv[p]);
       }
     }
-    if (next >= n_tiles) break;
-    id = next;
-    cur = nxt;
-    words = next_words;
   }
 }
 

@@ -8,11 +8,11 @@ Builds ``orb_slam2_ros2_tpu_torch/csrc/fast_nms.cu`` and prints:
   2. the kernel's device time on the two KITTI pyramids of ``chip_smoke.py``
      (one launch, ``device_ms``), NMS on and off, and its SASS instruction
      mix (cuobjdump) per scored pixel;
-  3. the issue rate of the instruction kinds the kernel is made of, from
-     probe kernels whose loops hold one instruction of the kind per operation
-     (their SASS histograms are printed beside the rates): lanes per clock
-     per SM at the card's maximum SM clock, with the clock nvidia-smi
-     reports right after the probes.
+  3. the throughput of the instruction kinds the kernel is made of, from
+     probe kernels whose loops hold a fixed number of instructions of the
+     kind per step (their SASS histograms are printed beside the rates, to
+     check that count): lanes per clock per SM at the card's maximum SM
+     clock, with the clock nvidia-smi reports right after the probes.
 
 Needs nvcc (and cuobjdump beside it) and a CUDA device; exits non-zero
 without one.  Writes its build products under ``build/profile/``.
@@ -37,15 +37,27 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile
 PROBES = r"""
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-typedef __nv_bfloat162 bf2;
-__device__ __forceinline__ unsigned u(bf2 v) { return *reinterpret_cast<unsigned*>(&v); }
-__device__ __forceinline__ bf2 b(unsigned x) { return *reinterpret_cast<bf2*>(&x); }
+// each step is two instructions of the kind (one for the three-input min)
 template <int OP>
 __device__ __forceinline__ unsigned step(unsigned a, unsigned x, unsigned y) {
-  if (OP == 0) return __float_as_uint(__uint_as_float(a) + __uint_as_float(x));                 // FADD
-  if (OP == 1) return u(__floats2bfloat162_rn(__uint_as_float(a), __uint_as_float(x)));          // F2FP
-  if (OP == 2) return u(__hmin2(__hmin2(b(a), b(x)), b(y)));                                     // VHMNMX
-  return __byte_perm(a, x, 0x7632);                                                               // PRMT
+  unsigned r;
+  if (OP == 0) { asm volatile("add.f32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(x));
+                 asm volatile("sub.f32 %0, %1, %2;" : "=r"(r) : "r"(r), "r"(y)); }
+  if (OP == 1) { asm volatile("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(x));
+                 asm volatile("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "r"(r), "r"(y)); }
+  if (OP == 2) { asm volatile("min.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(x));
+                 asm volatile("max.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(r), "r"(y)); }
+  if (OP == 3) { __nv_bfloat162 v = __hmin2(__hmin2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                                                    *reinterpret_cast<__nv_bfloat162*>(&x)),
+                                            *reinterpret_cast<__nv_bfloat162*>(&y));
+                 r = *reinterpret_cast<unsigned*>(&v); }
+  if (OP == 4) { asm volatile("min.f32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(x));
+                 asm volatile("max.f32 %0, %1, %2;" : "=r"(r) : "r"(r), "r"(y)); }
+  if (OP == 5) { asm volatile("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(r) : "r"(a), "r"(x));
+                 asm volatile("prmt.b32 %0, %1, %2, 0x5410;" : "=r"(r) : "r"(r), "r"(y)); }
+  if (OP == 6) { asm volatile("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(x), "r"(y));
+                 asm volatile("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(r), "r"(y), "r"(x)); }
+  return r;
 }
 template <int OP>
 __global__ void probe(unsigned* out, unsigned seed, int iters) {
@@ -65,14 +77,22 @@ __global__ void probe(unsigned* out, unsigned seed, int iters) {
 extern "C" int run(int op, void* out, int blocks, int iters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto o = static_cast<unsigned*>(out);
-  if (op == 0) probe<0><<<blocks, 256, 0, st>>>(o, 12345u, iters);
-  if (op == 1) probe<1><<<blocks, 256, 0, st>>>(o, 12345u, iters);
-  if (op == 2) probe<2><<<blocks, 256, 0, st>>>(o, 12345u, iters);
-  if (op == 3) probe<3><<<blocks, 256, 0, st>>>(o, 12345u, iters);
+  switch (op) {
+    case 0: probe<0><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 1: probe<1><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 2: probe<2><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 3: probe<3><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 4: probe<4><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 5: probe<5><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+    case 6: probe<6><<<blocks, 256, 0, st>>>(o, 12345u, iters); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 """
-PROBE_NAMES = ["FADD f32", "F2FP f32x2 -> bf16x2", "VHMNMX bf16x2 3-input min", "PRMT"]
+# (name, instructions of the kind per step)
+PROBES_RUN = [("FADD f32", 2), ("F2FP f32x2 -> bf16x2", 2), ("HMNMX2 bf16x2 min, max", 2),
+              ("VHMNMX bf16x2 3-input min", 1), ("FMNMX f32 min, max", 2), ("PRMT", 2),
+              ("IMAD", 2)]
 
 
 def sass_histograms(source: str) -> dict:
@@ -133,9 +153,9 @@ def main() -> int:
     blocks, iters = sms * 8, 4096
     hist = {int(re.search(r"probeILi(\d)E", k).group(1)): v for k, v in sass_histograms(src).items()}
     stream = torch.cuda.current_stream().cuda_stream
-    for op, name in enumerate(PROBE_NAMES):
+    for op, (name, per_step) in enumerate(PROBES_RUN):
         ms = chip_smoke.device_ms(lambda: lib.run(op, sink.data_ptr(), blocks, iters, stream), runs=5)
-        lanes = blocks * 256 * iters * 8 / (ms * 1e-3) / sms / sm_hz
+        lanes = blocks * 256 * iters * 8 * per_step / (ms * 1e-3) / sms / sm_hz
         print(f"[3/3] {name:28s} {lanes:6.1f} lanes/clock/SM ({ms:.4f} ms); probe SASS "
               f"{dict(hist[op].most_common(4))}")
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
