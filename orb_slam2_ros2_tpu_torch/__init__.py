@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of the stereo tracking path of ``orb_slam2_ros2_tpu``.
+"""PyTorch + CUDA port of ``orb_slam2_ros2_tpu``.
 
 The JAX package is the reference this package is held against; this one runs
-the per-frame stereo tracking program (localization mode) on an NVIDIA GPU,
+stereo and RGB-D SLAM without loop closing — tracking, keyframe mapping with
+local BA, map save/load and relocalization in a saved map — on an NVIDIA GPU,
 with the two TPU kernels of that path replaced by CUDA C++ kernels written for
 Hopper (``csrc/``).  It imports torch and numpy only — never JAX.
 """

@@ -69,6 +69,22 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return I + a * K + b * K2
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3], for angles in [0, π): θ = atan2(‖w‖, tr − 1)
+    with w the skew part (‖w‖ = 2 sin θ), well-conditioned away from π."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    w = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    w_norm = torch.sqrt(torch.sum(w * w, dim=-1) + 1e-24)  # = 2 sin θ
+    theta = torch.atan2(w_norm, trace - 1.0)
+    # θ/(2 sin θ) with the series 1/2 + θ²/12 near zero
+    scale = torch.where(w_norm < 1e-6, 0.5 + theta * theta / 12.0,
+                        theta / torch.clamp(w_norm, min=1e-12))
+    return w * scale[..., None]
+
+
 def _V(phi: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO(3): V such that exp([rho,phi]) translation = V rho."""
     theta2 = torch.sum(phi * phi, dim=-1, keepdim=True)[..., None]

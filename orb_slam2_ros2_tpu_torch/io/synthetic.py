@@ -169,3 +169,11 @@ class SyntheticStereoDataset:
         imgR, _ = render(self.K_inv, Twc @ right_offset, self.cfg.height, self.cfg.width,
                          self.box_scale, self.sky)
         return imgL, imgR, np.asarray(self.poses_wc[i])
+
+    def frame_with_depth(self, i: int):
+        """Returns (img, depth, Twc_gt): the left image and its depth map
+        (camera z in metres) of the default box, [H, W] f32 tensors on the
+        device."""
+        Twc = torch.from_numpy(self.poses_wc[i]).to(self.device)
+        img, depth = render(self.K_inv, Twc, self.cfg.height, self.cfg.width)
+        return img, depth, np.asarray(self.poses_wc[i])

@@ -110,8 +110,13 @@ def test_import_leaves_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
         "import orb_slam2_ros2_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "want = ['bow.vocabulary', 'bow.keyframe_db', 'geometry.align', 'geometry.sim3',\n"
+        "        'solvers.epnp', 'solvers.sim3_solver', 'io.persistence', 'pipeline.loop_closing']\n"
+        "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
+        "assert not missing, missing\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'orb_slam2_ros2_tpu.'))"
         " or n == 'orb_slam2_ros2_tpu']\n"
         "assert not bad, bad\n"
@@ -124,10 +129,12 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_never_name_jax():
-    """No source of the port imports JAX or the JAX package, even lazily."""
+    """No source of the port, nor ``chip_smoke.py``, imports JAX or the JAX
+    package, even lazily."""
     pkg = os.path.join(REPO, "orb_slam2_ros2_tpu_torch")
     offenders = []
-    for root, _, files in os.walk(pkg):
+    sources = [(REPO, ["chip_smoke.py"])] + [(root, files) for root, _, files in os.walk(pkg)]
+    for root, files in sources:
         for f in files:
             if f.endswith(".py"):
                 text_ = open(os.path.join(root, f)).read()

@@ -94,10 +94,14 @@ def test_map_and_counters_agree(runs):
 
 @pytest.mark.parametrize("refused", ["rgbd", "pipelined", "split", "n_devices", "mapping"])
 def test_unported_modes_are_refused(refused):
+    """RGB-D is ported: alone it constructs, and it lifts none of the other
+    refusals (here the pipelined loop)."""
     cfg = small_cfg(tcfg)
     kw = {}
     if refused == "rgbd":
         kw["rgbd"] = True
+        assert TSLAM(cfg, device="cpu", **kw).rgbd
+        cfg = small_cfg(tcfg, pipelined=True)
     elif refused == "pipelined":
         cfg = small_cfg(tcfg, pipelined=True)
     elif refused == "split":
