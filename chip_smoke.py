@@ -43,7 +43,25 @@ Phases (one line each; any failure raises and exits non-zero):
      plain version on this one-image canvas; every frame must track OK, the
      ATE must stay under 4% of the path, and each kernel launches exactly
      once a frame;
-  9. times: per-frame ms of every phase, ms of ``load`` / ``rebuild`` and of
+  9. loop closing: ``SLAM`` with loop closing on at the default
+     ``SLAMConfig()`` (1024 keyframe and 262,144 point slots, so the
+     essential graph takes the PCG route) on the circle world of
+     ``bench_loop.py`` (``circle=True``, ``box_scale=2.5``, period 96): 100
+     frames, then the second lap until the background GBA has committed (at
+     most 40 more frames), then ``flush()``.  Every frame must track OK, at
+     least one loop must close with its edge in ``map.loop_edges``, no GBA
+     may be pending after ``flush()``, the live ATE must stay under 5% and
+     the final-trajectory ATE under 3% of the path and no worse than the
+     live one, and each kernel must launch exactly once a frame.  The
+     detection dispatches and the GBA chunks run under
+     ``set_sync_debug_mode("error")``; the resolve, the stage gates, the
+     correction and the commit under "warn", and the phase prints the reads
+     of the closure (warnings plus waits for a copied result), the gates
+     of stages A/B/C, each stage's CUDA-event span (the cascade stages,
+     ``correct_group``, the fuses, ``optimize_essential``, every GBA chunk,
+     the commit), the median frame ms, the largest frame after the closure
+     over that median, and peak device memory;
+ 10. times: per-frame ms of every phase, ms of ``load`` / ``rebuild`` and of
      the relocalizing frames, keyframe-program spans (CUDA events), and each
      kernel's device time at the main-path shapes (``device_ms``:
      back-to-back calls between one event pair, over the count) beside its
@@ -51,7 +69,7 @@ Phases (one line each; any failure raises and exits non-zero):
      the same windows.
 
 Before the last line come a JSON object with one entry per kernel (launches
-summed over the four main-path runs) and the card line; the last line is
+summed over the five main-path runs) and the card line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -65,6 +83,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -122,6 +141,10 @@ TUM_TRACKING = dict(th_depth=40.0, max_frames=30)
 RGBD_FRAMES = 20
 RGBD_WORLD_SCALE = 0.15  # the default world shrunk: walls 1.2 m away, 0.0525 m/frame
 MAX_ATE_RGBD = 0.04      # fraction of path length (tests/test_rgbd.py:47)
+# loop phase: the circle world of bench_loop.py:38-55 (period 96 frames)
+LOOP_FRAMES = 100
+LOOP_PERIOD = LOOP_FRAMES - 4
+LOOP_EXTRA = 40          # second-lap frames at most, until the GBA commits
 
 
 def gpu_line() -> str:
@@ -312,7 +335,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/9] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/10] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -349,7 +372,7 @@ def run_mapping(cfg: SLAMConfig):
         rec = dict(frame=i, ms=ms, keyframe=slam._n_kf > n_kf_before,
                    n_inliers=stats.get("n_inliers"), n_tracked=stats.get("n_tracked"),
                    n_kf=slam._n_kf, next_mp=stats.get("next_mp"))
-        print(f"[6/9] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[6/10] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -380,7 +403,7 @@ def run_mapping(cfg: SLAMConfig):
         program_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v))
                          for k, v in spans.items()},
     )
-    print(f"[6/9] mapping: {json.dumps(summary)}", flush=True)
+    print(f"[6/10] mapping: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path_len:
         raise AssertionError(f"live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path_len:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path_len:
@@ -433,7 +456,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/9] {json.dumps(rec)}", flush=True)
+        print(f"[7/10] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -490,7 +513,7 @@ def run_rgbd(cfg: SLAMConfig):
         rec = dict(frame=i, ms=ms, keyframe=slam._n_kf > n_kf_before, n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/9] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/10] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -506,6 +529,118 @@ def run_rgbd(cfg: SLAMConfig):
     return records, launches, summary
 
 
+def _span_ms(slam: SLAM) -> dict:
+    """CUDA-event spans of the SLAM's programs by name: [ms, ...]."""
+    spans: dict = {}
+    for name, start, end in slam.program_events:
+        spans.setdefault(name, []).append(start.elapsed_time(end))
+    return spans
+
+
+def run_loop(cfg: SLAMConfig):
+    """Full SLAM with loop closing around the circle world: the first lap,
+    then the second lap (bench_loop.py's index rule) until the background
+    GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
+    detection dispatches and GBA chunks run under sync debug "error"; the
+    stages that may read back run under "warn", and a frame's reads are its
+    warnings plus its waits for a gate or detection copy (the debug mode
+    does not see event waits).  Returns (records, launch counts, summary)."""
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=LOOP_FRAMES, circle=True, box_scale=2.5,
+                                device="cuda")
+    frames = [ds.frame(i) for i in range(LOOP_FRAMES)]  # rendered on the card, set-up
+    slam = SLAM(cfg, device="cuda")
+    slam.time_programs = True
+    slam.loop_sync_debug_mode = "warn"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_launches()
+    records, gt = [], []
+    closure_frame, commit_frame, cascade_start, closure_start = None, None, None, None
+    i = 0
+    while True:
+        if i < LOOP_FRAMES:
+            j = i
+        elif closure_frame is not None and slam._pending_gba is None:
+            break
+        elif i >= LOOP_FRAMES + LOOP_EXTRA:
+            break
+        else:
+            j = ((i - 4) % LOOP_PERIOD) + 4
+        img_l, img_r, Twc_gt = frames[j]
+        n_events, loops = len(slam.program_events), slam.loops_closed
+        waits = slam.loop_closer.host_reads if slam.loop_closer is not None else 0
+        slam.frame_sync_debug_mode = "error" if i >= 2 else None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pose, stats, ms = _track(slam, i, img_l, img_r)
+        if slam.state != TrackState.OK or pose is None:
+            raise AssertionError(f"loop frame {i}: state {slam.state}, stats {stats}")
+        stages = sorted({name for name, _, _ in slam.program_events[n_events:]})
+        reads = (sum("synchroniz" in str(w.message) for w in caught)
+                 + (slam.loop_closer.host_reads - waits if slam.loop_closer is not None else 0))
+        if "sim3_a" in stages:
+            cascade_start = i
+        if slam.loops_closed > loops:
+            closure_frame, closure_start = i, cascade_start
+        if "gba_commit" in stages:
+            commit_frame = i
+        rec = dict(frame=i, src=j, ms=ms, n_kf=slam._n_kf, n_inliers=stats.get("n_inliers"),
+                   reads=reads, stages=stages, loops=slam.loops_closed)
+        print(f"[9/10] frame {i}: {json.dumps(rec)}", flush=True)
+        records.append(rec)
+        gt.append(Twc_gt)
+        i += 1
+    slam.flush()
+    torch.cuda.synchronize()
+    slam.frame_sync_debug_mode = None
+    launches = _launches()
+
+    loop_edges = slam.map.loop_edges.cpu().numpy()
+    edges = loop_edges[loop_edges[:, 0] >= 0].tolist()
+    if slam.loops_closed < 1 or not edges:
+        raise AssertionError(f"no loop closed: loops_closed {slam.loops_closed}, loop edges {edges}, "
+                             f"gates {slam.loop_closer.gate_log if slam.loop_closer else None}")
+    if slam._pending_gba is not None:
+        raise AssertionError("the background GBA is still pending after flush()")
+
+    def ate(pairs):
+        return ate_rmse([np.linalg.inv(T.astype(np.float64)) for _, T in pairs], [gt[f] for f, _ in pairs])
+
+    path_len = float(sum(np.linalg.norm(gt[k + 1][:3, 3] - gt[k][:3, 3]) for k in range(len(gt) - 1)))
+    ate_live, ate_final = ate(slam.trajectory), ate(slam.final_trajectory())
+    spans = _span_ms(slam)
+    ms_all = [r["ms"] for r in records]
+    med = statistics.median(ms_all[10:])
+    after = ms_all[closure_frame:] if closure_frame is not None else []
+    last = commit_frame if commit_frame is not None else len(records) - 1
+    closure_reads = (sum(r["reads"] for r in records[closure_start:last + 1])
+                     if closure_start is not None else None)
+    summary = dict(
+        frames=len(records), closure_frame=closure_frame, cascade_start_frame=closure_start,
+        commit_frame=commit_frame, loop_edges=edges, loops_closed=slam.loops_closed,
+        gates=[g for g in slam.loop_closer.gate_log],
+        n_keyframes=slam.n_keyframes, n_mappoints=slam.n_mappoints,
+        ate_live_m=ate_live, ate_final_m=ate_final, path_len_m=path_len,
+        median_frame_ms=med, max_after_closure_ms=max(after) if after else None,
+        spike_ratio=max(after) / med if after else None,
+        reads_closure=closure_reads, reads_by_frame={r["frame"]: r["reads"] for r in records if r["reads"]},
+        peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        span_ms={k: [round(x, 3) for x in v] for k, v in spans.items()
+                 if k not in ("map_front", "map_tail", "cull_kfs", "loop_detect")},
+        keyframe_span_ms={k: dict(n=len(spans[k]), median=statistics.median(spans[k]), max=max(spans[k]))
+                          for k in ("map_front", "map_tail", "cull_kfs", "loop_detect") if k in spans},
+    )
+    print(f"[9/10] loop: {json.dumps(summary)}", flush=True)
+    if not ate_live < MAX_ATE_LIVE * path_len:
+        raise AssertionError(f"loop live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path_len:.2f} m")
+    if not ate_final < MAX_ATE_FINAL * path_len:
+        raise AssertionError(f"loop final ATE {ate_final:.4f} m ≥ {MAX_ATE_FINAL} × {path_len:.2f} m")
+    if not ate_final <= ate_live:
+        raise AssertionError(f"loop final ATE {ate_final:.4f} m worse than live {ate_live:.4f} m")
+    return records, launches, summary
+
+
 def _frame_ms(records, keyframe=None):
     ms = [r["ms"] for r in records[2:] if keyframe is None or r["keyframe"] == keyframe]
     return statistics.median(ms) if ms else float("nan")
@@ -516,12 +651,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     card = gpu_line()
-    print(f"[1/9] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/10] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/9] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/10] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -537,27 +672,27 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/9] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/10] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/9] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/10] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/9] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/10] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
-    print(f"[6/9] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/10] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/9] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/10] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -565,12 +700,20 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/9] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/10] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/9] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/10] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
+
+    _, loop_launches, loop = run_loop(base)
+    print(f"[9/10] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+          f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
+          f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
+          f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
+          f"reads in the closure {loop['reads_closure']}, peak device memory "
+          f"{loop['peak_mem_mib']:.1f} MiB, launches {loop_launches}", flush=True)
 
     k1_out = torch.empty(k1_table.out_numel, dtype=torch.bfloat16, device="cuda")
     k1_ms = device_ms(lambda: fast.fast_score_nms_pyramid(k1_canvas, k1_table, FAST_TH, out=k1_out))
@@ -585,7 +728,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[9/9] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/10] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -596,7 +739,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[9/9] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/10] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -605,13 +748,13 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[9/9] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/10] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
-    runs_launches = (launches, map_launches, reloc_launches, rgbd_launches)
+    runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches)
     kernels = [
         {"name": "fast_nms", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/fast_nms.cu",
          "replaces": "orb_slam2_ros2_tpu/ops/pallas_fast.py:109",

@@ -1,8 +1,9 @@
 """Carry state between the JAX package and this port.
 
 The JAX package's ``MapState``, ``LocalMap``, ``SlamFrame``, ``StereoFrame``,
-``FrameFeatures``, ``Vocabulary``, ``KeyFrameDB`` and ``Sim3`` arrive as trees
-of numpy arrays (its NamedTuples with
+``FrameFeatures``, ``Vocabulary``, ``KeyFrameDB``, ``Sim3``,
+``PoseGraphProblem``, ``PointBAProblem``, ``GlobalBAProblem`` and
+``PendingGBA`` arrive as trees of numpy arrays (its NamedTuples with
 numpy leaves, or dicts keyed by field name) and become this package's
 NamedTuples of tensors on a device; ``to_numpy`` goes back to nested dicts
 of numpy arrays.  uint32 descriptor words are reinterpreted as int32 bit for
@@ -22,6 +23,9 @@ from .geometry.sim3 import Sim3
 from .mapstate.local_map import LocalMap
 from .mapstate.map_state import MapState
 from .pipeline.system import SlamFrame
+from .solvers.global_ba import PendingGBA
+from .solvers.pcg_ba import GlobalBAProblem, PointBAProblem
+from .solvers.pose_graph import PoseGraphProblem
 
 _DESC_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "levels"})
 
@@ -80,6 +84,32 @@ def keyframe_db_to_torch(tree, device) -> KeyFrameDB:
 
 def sim3_to_torch(tree, device) -> Sim3:
     return _flat(Sim3, tree, device)
+
+
+def pose_graph_problem_to_torch(tree, device) -> PoseGraphProblem:
+    sub = {"S_cw", "edge_Sji"}
+    return PoseGraphProblem(*(
+        sim3_to_torch(_get(tree, f), device) if f in sub else _tensor(_get(tree, f), device)
+        for f in PoseGraphProblem._fields))
+
+
+def point_ba_problem_to_torch(tree, device) -> PointBAProblem:
+    return _flat(PointBAProblem, tree, device)
+
+
+def global_ba_problem_to_torch(tree, device) -> GlobalBAProblem:
+    return _flat(GlobalBAProblem, tree, device)
+
+
+def pending_gba_to_torch(tree, device) -> PendingGBA:
+    """The watermarks and the chunk count stay host ints."""
+    return PendingGBA(
+        prob=global_ba_problem_to_torch(_get(tree, "prob"), device),
+        Tcw=_tensor(_get(tree, "Tcw"), device), ptsT=_tensor(_get(tree, "ptsT"), device),
+        pt_in_ba=_tensor(_get(tree, "pt_in_ba"), device),
+        snap_next_kf=int(_get(tree, "snap_next_kf")), snap_next_mp=int(_get(tree, "snap_next_mp")),
+        chunks_done=int(_get(tree, "chunks_done")),
+    )
 
 
 def to_numpy(nt) -> dict:

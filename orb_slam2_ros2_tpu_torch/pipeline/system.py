@@ -1,9 +1,11 @@
-"""The SLAM system: stereo or RGB-D tracking + local mapping with local BA,
-relocalization in a saved map, no loop closing.
+"""The SLAM system: stereo or RGB-D tracking, local mapping with local BA,
+loop closing with the essential graph and a background global BA, and
+relocalization in a saved map.
 
 Port of ``orb_slam2_ros2_tpu/pipeline/system.py`` (reference src/System.cc,
-src/Tracking.cc, src/LocalMapping.cc).  Frame 0 initializes the map from
-stereo depth (one keyframe); every later frame runs ONE frame program —
+src/Tracking.cc, src/LocalMapping.cc, src/LoopClosing.cc).  Frame 0
+initializes the map from stereo depth (one keyframe); every later frame runs
+ONE frame program —
 frontend → motion-model match + pose-only LM → local-map projection match +
 a second LM → counter bumps, stats and the frame-centred local-map refresh —
 and the host reads ONE stats vector back.  Outside localization mode
@@ -15,19 +17,28 @@ once with ``mapping.synchronous``.  None of the three programs synchronises
 with the host (no ``.item()``, boolean-mask indexing or host copies), which
 ``SLAM.frame_sync_debug_mode`` can enforce.
 
-Relocalization (a LOST frame, or the first frame on a loaded map) queries the
-keyframe database of the loop closer's place-recognition half — BoW
-candidates → descriptor match → EPnP RANSAC → pose-only LM → two projection
-augmentation rounds, ``reloc_all_candidates`` — and costs one fetch.  The
-database exists after ``load()`` of a map saved with its vocabulary (or after
-``_ensure_loop_closer``); without one a LOST frame returns
-``(None, {"reloc": "no_vocab"})`` as the JAX system does.  ``save`` / ``load``
-handle the npz map format.
+Loop closing (``enable_loop_closing=True``, the default) registers every
+keyframe in the place-recognition database when its tail runs (or its BA is
+aborted) and dispatches the candidate query without a host read; idle frames
+then, in this order, advance the Sim3 cascade one stage, resolve one pending
+detection through the consistency chains, or run one chunk of the background
+global BA; a verified loop is corrected at once (group propagation, fuses,
+essential graph), the GBA snapshot taken, and its commit re-anchors the
+tracker.  The dispatch and the GBA chunks read nothing back; the resolve, the
+stage gates, the correction and the commit do.
 
-Not ported yet, and refused by ``SLAM.__init__``: loop closing (so mapping
-needs ``enable_loop_closing=False``), the pipelined loop, the tracker/mapper
-split and multi-device BA; ``save`` / ``load`` refuse the protobuf and txt
-map formats.
+Relocalization (a LOST frame, or the first frame on a loaded map) queries the
+keyframe database — BoW candidates → descriptor match → EPnP RANSAC →
+pose-only LM → two projection augmentation rounds, ``reloc_all_candidates``
+— and costs one fetch.  Without a database (localization mode without
+``load()`` of a map saved with its vocabulary) a LOST frame returns
+``(None, {"reloc": "no_vocab"})`` as the JAX system does.  ``save`` /
+``load`` handle the npz map format.
+
+Not ported yet, and refused by ``SLAM.__init__``: the pipelined loop, the
+tracker/mapper split and multi-device BA (with them the mesh-sharded
+essential graph and global BA); ``save`` / ``load`` refuse the protobuf and
+txt map formats.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ from ..mapstate.mapping import (
 from ..matching import matcher
 from ..ops.hamming import hamming_matrix
 from ..solvers.epnp import ransac_pnp
+from ..solvers.global_ba import commit_global_ba, global_ba, start_global_ba, step_global_ba
 from ..solvers.local_ba import local_ba
 from ..solvers.pose_opt import PoseObs, optimize_pose
 from ..utils import count_into, mask_from_ids, set_drop
@@ -446,8 +458,8 @@ def reloc_all_candidates(
 
 
 class SLAM:
-    """Stereo or RGB-D SLAM on one device, tracking + local mapping without
-    loop closing — the reference's ``System`` API: construct, call
+    """Stereo or RGB-D SLAM on one device — tracking, local mapping and loop
+    closing — with the reference's ``System`` API: construct, call
     ``track(left, right)`` (``track(image, depth_map)`` with ``rgbd=True``)
     per frame (reference System::EstimatePose, System.h:55-61), ``flush()``
     at the end of the sequence; ``save(path)`` / ``load(path)`` keep the map
@@ -461,17 +473,15 @@ class SLAM:
             raise NotImplementedError("dist.tracker_mapper_split is not ported yet (ROADMAP port queue: multi-GPU)")
         if cfg.dist.n_devices > 1:
             raise NotImplementedError("dist.n_devices > 1 is not ported yet (ROADMAP port queue: multi-GPU)")
-        if enable_loop_closing and not cfg.tracking.only_tracking:
-            raise NotImplementedError(
-                "enable_loop_closing=True with tracking.only_tracking=False: loop closing is not "
-                "ported yet (ROADMAP port queue: loop closing); pass enable_loop_closing=False")
-        # localization mode never closes loops, so the flag is inert there
         self.cfg = cfg
+        # localization mode never closes loops
+        self.enable_loop_closing = enable_loop_closing and not cfg.tracking.only_tracking
         self.rgbd = rgbd
         self.device = torch.device(device)
         self.cam = CameraParams.from_config(cfg.camera, self.device)
-        # built by load() or _ensure_loop_closer(): the vocabulary and the
-        # keyframe database relocalization queries
+        # built on the first keyframe registration, by load() or by
+        # _ensure_loop_closer(): the vocabulary, the keyframe database and
+        # the loop-closing state
         self.loop_closer = None
         o, c, m, t, b = cfg.orb, cfg.camera, cfg.matcher, cfg.tracking, cfg.ba
         # n_init_features does not shape the frontend (max_keypoints does), so
@@ -531,6 +541,18 @@ class SLAM:
         # events, appended to program_events as (name, start, end)
         self.time_programs = False
         self.program_events: list = []
+        # loop closing: detections dispatched but not read yet, (anchor KF,
+        # HostCopy, is_frame_query) in FIFO order; the background GBA in
+        # flight; closures so far and the frame of the last one (frame-based
+        # suppression of the frame-level queries)
+        self._pending_loops: list = []
+        self._pending_gba = None
+        self.loops_closed = 0
+        self._last_closure_fid = -(1 << 30)
+        # sync debug mode around the loop stages that may read back (the
+        # resolve, the cascade stages, the correction, the GBA snapshot and
+        # commit); the dispatches and GBA chunks take frame_sync_debug_mode
+        self.loop_sync_debug_mode: Optional[str] = None
 
     # ------------------------------------------------------------------
     def frame_program(self, img_l, img_r, last: SlamFrame, velocity, local: LocalMap,
@@ -610,8 +632,7 @@ class SLAM:
                                   max_mps=t.max_local_mappoints)
 
     @contextlib.contextmanager
-    def _sync_guard(self):
-        mode = self.frame_sync_debug_mode
+    def _sync_guard(self, mode: Optional[str]):
         if mode is None or self.device.type != "cuda":
             yield
             return
@@ -623,10 +644,10 @@ class SLAM:
             torch.cuda.set_sync_debug_mode(prev)
 
     @contextlib.contextmanager
-    def _keyframe_program(self, name: str):
-        """Dispatch a keyframe program under the sync guard, bracketed by
-        CUDA events when ``time_programs`` is on."""
-        with self._sync_guard():
+    def _program(self, name: str, sync_mode: Optional[str]):
+        """Run a program under ``sync_mode``, bracketed by CUDA events when
+        ``time_programs`` is on."""
+        with self._sync_guard(sync_mode):
             if not (self.time_programs and self.device.type == "cuda"):
                 yield
                 return
@@ -635,6 +656,15 @@ class SLAM:
             yield
             end.record()
             self.program_events.append((name, start, end))
+
+    def _keyframe_program(self, name: str):
+        """A keyframe program, loop-detection dispatch or GBA chunk: no host
+        read allowed (``frame_sync_debug_mode``)."""
+        return self._program(name, self.frame_sync_debug_mode)
+
+    def _loop_stage(self, name: str):
+        """A loop-closing stage that may read back (``loop_sync_debug_mode``)."""
+        return self._program(name, self.loop_sync_debug_mode)
 
     def _validate_images(self, img_left, img_right) -> None:
         """Shape gate on the hot path (reference ImageSizeError)."""
@@ -693,7 +723,7 @@ class SLAM:
         # the stricter inlier bar for max_frames frames
         in_reloc_window = fid < self.last_reloc_fid + t.max_frames
         wide = fid < self.last_reloc_fid + 2
-        with self._sync_guard():
+        with self._sync_guard(self.frame_sync_debug_mode):
             new_state, velocity, host_vec, new_map, local_new = self.frame_program(
                 img_left, img_right, self.last, self.velocity, self.local, self.map,
                 self.ref_kf, proj_th=5.0 if wide else 3.0,
@@ -738,8 +768,27 @@ class SLAM:
         if self._need_keyframe(stats):
             self._insert_and_map(new_state, fid, stats)
         elif self._pending_kf is not None:
-            # mapper idle: run the deferred BA / culling tail
+            # mapper idle: run the deferred BA / culling / loop-detection tail
             self._run_deferred_mapping()
+        elif self.loop_closer is not None and self.loop_closer.pending_sim3:
+            # advance the deferred Sim3 cascade one stage (the reference's
+            # LoopClosing thread mid-verification)
+            self._step_pending_sim3()
+        elif self._pending_loops:
+            # resolve one dispatched detection (its bytes were copied at
+            # dispatch; LoopClosing.cc:32-50 draining its queue)
+            self._resolve_pending_loop()
+        elif self._pending_gba is not None:
+            # fully idle: one chunk of the background global BA
+            # (LoopClosing.cc:92-169)
+            self._step_pending_gba()
+        elif self._want_frame_loop_query(fid):
+            # starved-keyframe regime: query with this frame's BoW
+            self._dispatch_frame_loop_query(new_state)
+        if len(self._pending_loops) > 2:
+            # keyframe-heavy stretches leave no idle frame: bound the
+            # detection lag (the reference's blocking queue, LoopClosing.cc:548-552)
+            self._resolve_pending_loop()
 
         self.trajectory.append((fid, pose))
         # a frame promoted to keyframe references itself
@@ -941,8 +990,13 @@ class SLAM:
             return
         force = self._kfs_since_ba + 1 >= self.cfg.mapping.force_ba_every
         if next_kf_arriving and not force:
+            kf_id = self._pending_kf
             with self._keyframe_program("cull_kfs"):
-                self.map = self._cull_kfs(self.map, self._pending_kf)
+                self.map = self._cull_kfs(self.map, kf_id)
+            # the keyframe still goes to place recognition
+            # (LoopClosing::insertKeyFrame receives every keyframe)
+            if self.enable_loop_closing:
+                self._dispatch_loop_detect(kf_id)
             self._pending_kf = None
             self._kfs_since_ba += 1
         else:
@@ -962,6 +1016,8 @@ class SLAM:
         do_cull = mp.kf_cull_stride > 0 and (self._tail_counter + 1) % mp.kf_cull_stride == 0
         with self._keyframe_program("map_tail"):
             self.map, self.local = self.map_tail_program(self.map, kf_id, do_ba, do_cull)
+        if self.enable_loop_closing:
+            self._dispatch_loop_detect(kf_id)
 
     # ------------------------------------------------------------------
     def final_trajectory(self) -> list:
@@ -989,16 +1045,40 @@ class SLAM:
         return out
 
     def flush(self) -> None:
-        """Complete the deferred mapping work (end of sequence)."""
+        """Complete the deferred work at the end of a sequence: the mapping
+        tail, every pending detection and cascade, the background GBA (the
+        reference joins its LoopClosing thread at shutdown)."""
         self._run_deferred_mapping()
+        while self._pending_loops or (self.loop_closer is not None and self.loop_closer.pending_sim3):
+            if self.loop_closer is not None and self.loop_closer.pending_sim3:
+                self._step_pending_sim3()
+            else:
+                self._resolve_pending_loop()
+        while self._pending_gba is not None:
+            self._step_pending_gba()
 
     # ------------------------------------------------------------------
     def _ensure_loop_closer(self, kf_id: int) -> None:
         """Build the vocabulary and an empty keyframe database on first
-        need, sized to the live map (it may have auto-grown)."""
-        if self.loop_closer is None:
-            self.loop_closer = LoopCloser(self.cfg, self._resolve_vocab(kf_id))
-            self.loop_closer.grow(self.map.kf_capacity)
+        need, sized to the live map (it may have auto-grown).  On a CUDA
+        device the loop programs and the GBA chunk run once on the live map
+        and are discarded, so the first closure pays no one-off library load
+        or allocation mid-run."""
+        if self.loop_closer is not None:
+            return
+        self.loop_closer = LoopCloser(self.cfg, self._resolve_vocab(kf_id))
+        self.loop_closer.grow(self.map.kf_capacity)
+        if self.device.type == "cuda" and self.enable_loop_closing:
+            self.loop_closer.warmup(self.map, self.cam)
+            b, lp = self.cfg.ba, self.cfg.loop
+            phase1 = lp.global_ba_phase_iters[0]
+            pend = start_global_ba(self.map, self.cfg.orb.scale_factor)
+            for done in (0, phase1):   # the ungated and the gated chunk
+                step_global_ba(pend._replace(chunks_done=done), self.cam, n_iters=1,
+                               pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
+                               chi2_stereo=b.chi2_stereo, robust_after=phase1)
+            commit_global_ba(self.map, pend)
+        self.loop_closer.span = self._loop_stage
 
     def _add_kf_to_db(self, kf_id: int) -> None:
         """Register a keyframe in the place-recognition database
@@ -1030,6 +1110,119 @@ class SLAM:
         valid = self.map.kf_feat_valid[kf_id].cpu().numpy()
         return bow_vocabulary.train_vocabulary(desc[valid], branching=b.branching, depth=b.depth,
                                                device=self.device)
+
+    # ------------------------------------------------------------------
+    def _dispatch_loop_detect(self, kf_id: int) -> None:
+        """Register the keyframe and dispatch loop detection without a host
+        read (LoopClosing::insertKeyFrame, LoopClosing.cc:548-552); the
+        result joins the pending FIFO, resolved on a later idle frame."""
+        self._ensure_loop_closer(kf_id)
+        with self._keyframe_program("loop_detect"):
+            out = self.loop_closer.detect_async(self.map, kf_id)
+        if out is not None:
+            self._pending_loops.append((kf_id, out, False))
+
+    def _want_frame_loop_query(self, fid: int) -> bool:
+        """Frame-level loop queries fire only in the starved-keyframe regime:
+        the cadence bound has passed but the ratio gate keeps blocking
+        insertion (LoopConfig.frame_query_stride), and not within 10·MaxFrames
+        frames of a closure."""
+        stride = self.cfg.loop.frame_query_stride
+        t = self.cfg.tracking
+        return (
+            stride > 0
+            and self.enable_loop_closing
+            and self.loop_closer is not None
+            and self.frames_since_kf > t.max_frames
+            and fid - self._last_closure_fid >= 10 * t.max_frames
+            and fid % stride == 0
+        )
+
+    def _dispatch_frame_loop_query(self, state: SlamFrame) -> None:
+        """Dispatch a frame-BoW candidate query (no registration) anchored at
+        the tracking reference keyframe; it feeds the same chains."""
+        with self._keyframe_program("loop_detect"):
+            out = self.loop_closer.detect_frame_async(
+                self.map, state.frame.feats.desc, state.frame.feats.valid, int(self.ref_kf))
+        if out is not None:
+            self._pending_loops.append((int(self.ref_kf), out, True))
+
+    def _resolve_pending_loop(self) -> bool:
+        """Read and resolve the oldest dispatched detection; a surviving
+        candidate starts the deferred Sim3 cascade (stage A)."""
+        kf_id, out, is_frame = self._pending_loops.pop(0)
+        with self._loop_stage("resolve"):
+            cand = self.loop_closer.detect_resolve(kf_id, out, kf_window=not is_frame)
+            if cand is not None:
+                self.loop_closer.sim3_begin(self.map, self.cam, kf_id, cand)
+        return False
+
+    def _step_pending_sim3(self) -> bool:
+        """Advance the cascade one stage; once verified, correct the loop
+        (group propagation, fuses, essential graph), snapshot the background
+        GBA and re-anchor the tracker (LoopClosing.cc:53-169)."""
+        with self._loop_stage("sim3_step"):
+            res = self.loop_closer.sim3_step(self.map, self.cam)
+        if res is None:
+            return False
+        kf_id, cand, S12, matched_mp, group = res
+        # a GBA in flight dies with the new closure (LoopClosing.cc:87)
+        self._pending_gba = None
+        ref_before = self.map.kf_Tcw[self.ref_kf].clone()
+        with self._loop_stage("correct"):
+            self.map = self.loop_closer.correct(self.map, self.cam, kf_id, cand, S12, matched_mp, group,
+                                                run_gba=False)
+        with self._loop_stage("gba_start"):
+            self._pending_gba = start_global_ba(self.map, self.cfg.orb.scale_factor)
+        self.loops_closed += 1
+        self._last_closure_fid = self.frame_id
+        # detections dispatched before the correction carry pre-closure
+        # candidates and chains
+        self._pending_loops.clear()
+        self.loop_closer.consistent_groups = []
+        self.local = self._snapshot(self.map, self.ref_kf)
+        self._reanchor_tracker(ref_before)
+        return True
+
+    def _step_pending_gba(self) -> None:
+        """One background-GBA chunk; the commit after the last one."""
+        b, lp = self.cfg.ba, self.cfg.loop
+        phase1 = lp.global_ba_phase_iters[0]
+        with self._keyframe_program("gba_chunk"):
+            self._pending_gba = step_global_ba(
+                self._pending_gba, self.cam, n_iters=1, pcg_iters=b.pcg_iters,
+                chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1)
+        if self._pending_gba.chunks_done >= sum(lp.global_ba_phase_iters):
+            self._commit_pending_gba()
+
+    def _commit_pending_gba(self) -> None:
+        """Commit the finished GBA onto the live map (LoopClosing.cc:101-166)
+        and re-anchor the tracker on it."""
+        ref_before = self.map.kf_Tcw[self.ref_kf].clone()
+        with self._loop_stage("gba_commit"):
+            self.map = commit_global_ba(self.map, self._pending_gba)
+        self._pending_gba = None
+        self.local = self._snapshot(self.map, self.ref_kf)
+        self._reanchor_tracker(ref_before)
+
+    def _reanchor_tracker(self, ref_before: torch.Tensor) -> None:
+        """Apply the correction that moved the reference keyframe to the
+        tracker's last frame, and restart the motion model.  ``ref_before``
+        must be a copy: the correction replaces ``kf_Tcw``, and a view of the
+        old row would make the delta the identity if it were written in
+        place."""
+        if self.last is None:
+            return
+        delta = se3.inverse(ref_before) @ self.map.kf_Tcw[self.ref_kf]
+        self.last = self.last._replace(Tcw=self.last.Tcw @ delta)
+        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+
+    def run_global_ba(self) -> None:
+        """Full-map bundle adjustment now (reference globalOptimization)."""
+        self.map = global_ba(self.map, self.cam, scale_factor=self.cfg.orb.scale_factor,
+                             pcg_iters=self.cfg.ba.pcg_iters)
+        if self.local is not None:
+            self.local = self._snapshot(self.map, self.ref_kf)
 
     @staticmethod
     def _refuse_other_formats(path: str) -> None:
@@ -1064,6 +1257,7 @@ class SLAM:
         if os.path.exists(path + ".vocab.npz"):
             vocab = bow_vocabulary.load_vocabulary(path + ".vocab.npz", self.device)
             self.loop_closer = LoopCloser(self.cfg, vocab)
+            self.loop_closer.span = self._loop_stage
             self.loop_closer.db = rebuild(
                 vocab, self.map, max_words=self.cfg.bow.max_words_per_query
             )

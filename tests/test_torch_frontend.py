@@ -114,7 +114,8 @@ def test_import_leaves_jax_out():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "want = ['bow.vocabulary', 'bow.keyframe_db', 'geometry.align', 'geometry.sim3',\n"
-        "        'solvers.epnp', 'solvers.sim3_solver', 'io.persistence', 'pipeline.loop_closing']\n"
+        "        'solvers.epnp', 'solvers.sim3_solver', 'io.persistence', 'pipeline.loop_closing',\n"
+        "        'solvers.pose_graph', 'solvers.pcg_ba', 'solvers.global_ba']\n"
         "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'orb_slam2_ros2_tpu.'))"

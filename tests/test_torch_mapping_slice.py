@@ -268,11 +268,12 @@ def test_tail_cadence_matches_jax(synchronous, ba_stride, cull_stride, force_ba_
 
 
 def test_loop_closing_is_refused_when_mapping():
-    """Mapping without the loop closer the JAX system would build is
-    refused; ``enable_loop_closing=False`` maps, and localization mode
-    ignores the flag as before."""
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        TSLAM(small_cfg(tcfg), device="cpu")
-    assert TSLAM(small_cfg(tcfg), enable_loop_closing=False, device="cpu")._n_kf == 0
+    """Mapping with the loop closer, refused before the loop-closing slice,
+    is the default now; ``enable_loop_closing=False`` maps without it, and
+    localization mode ignores the flag as before."""
+    assert TSLAM(small_cfg(tcfg), device="cpu").enable_loop_closing
+    off = TSLAM(small_cfg(tcfg), enable_loop_closing=False, device="cpu")
+    assert off._n_kf == 0 and not off.enable_loop_closing
     loc = small_cfg(tcfg)
-    TSLAM(loc.replace(tracking=dataclasses.replace(loc.tracking, only_tracking=True)), device="cpu")
+    assert not TSLAM(loc.replace(tracking=dataclasses.replace(loc.tracking, only_tracking=True)),
+                     device="cpu").enable_loop_closing

@@ -19,8 +19,9 @@ vocabulary.  On that file:
   ``max_frames`` frames after the relocalization;
 * the port's own ``save`` is read back by the JAX ``load_map`` with every
   field equal to what the JAX system saved;
-* protobuf and directory map paths, the unported ``LoopCloser`` methods and
-  loop closing with mapping raise ``NotImplementedError``.
+* protobuf and directory map paths raise ``NotImplementedError``; the
+  ``LoopCloser`` methods and loop closing with mapping, which raised before
+  the loop-closing slice, now run.
 """
 
 import jax
@@ -194,17 +195,44 @@ def test_other_formats_and_missing_files_raise(built, tmp_path):
 @pytest.mark.parametrize("name", ["detect_async", "detect_frame_async", "detect", "detect_resolve",
                                   "compute_sim3", "sim3_begin", "sim3_step", "warmup", "correct"])
 def test_unported_loop_closer_methods_raise(name):
-    lc = LoopCloser(reloc_cfg(tcfg), tvoc.train_vocabulary(
+    """The ``LoopCloser`` methods that raised before the loop-closing slice
+    run now, on the two-keyframe revisit world of
+    ``test_torch_loop_closing``: none raises, and each returns what its
+    caller expects."""
+    from test_torch_loop_closing import loop_world, make_cfg
+
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams as TCam
+
+    cfg_j, cfg_t = make_cfg(jcfg), make_cfg(tcfg)
+    st, _ = loop_world(cfg_j)
+    state = convert.map_state_to_torch(st, "cpu")
+    cam = TCam.from_config(cfg_t.camera, "cpu")
+    lc = LoopCloser(cfg_t, tvoc.train_vocabulary(
         np.random.default_rng(0).integers(0, 2**32, (64, 8), dtype=np.uint32), branching=2, depth=2))
-    assert lc.db.word_ids.shape == (64, 1024)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        getattr(lc, name)(None, None)
+    assert lc.db.word_ids.shape == (8, 1024)
+    gen = torch.Generator().manual_seed(0)
+    calls = {
+        "detect_async": lambda: lc.detect_async(state, 1) is None,          # a young map: no query
+        "detect_frame_async": lambda: lc.detect_frame_async(state, state.kf_desc[1], state.kf_feat_valid[1],
+                                                            1) is None,
+        "detect": lambda: lc.detect(state, 1) is None,
+        "detect_resolve": lambda: lc.detect_resolve(20, np.full((5, 9), -1, np.int32)) is None,
+        "compute_sim3": lambda: lc.compute_sim3(state, cam, 1, 0, gen) is not None,
+        "sim3_begin": lambda: lc.sim3_begin(state, cam, 1, 0) is None and lc.pending_sim3["stage"] == "a",
+        "sim3_step": lambda: lc.sim3_step(state, cam) is None,              # nothing pending
+        "warmup": lambda: lc.warmup(state, cam) is None,
+        "correct": lambda: lc.correct(state, cam, 1, 0, *lc.compute_sim3(state, cam, 1, 0, gen),
+                                      run_gba=False).kf_Tcw.shape == state.kf_Tcw.shape,
+    }
+    assert calls[name]()
 
 
 def test_loop_closing_with_mapping_stays_refused():
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        tsys.SLAM(reloc_cfg(tcfg), enable_loop_closing=True, device="cpu")
-    tsys.SLAM(reloc_cfg(tcfg, only_tracking=True), enable_loop_closing=True, device="cpu")
+    """Loop closing with mapping, refused before the loop-closing slice, is
+    accepted; localization mode ignores the flag."""
+    assert tsys.SLAM(reloc_cfg(tcfg), enable_loop_closing=True, device="cpu").enable_loop_closing
+    assert not tsys.SLAM(reloc_cfg(tcfg, only_tracking=True), enable_loop_closing=True,
+                         device="cpu").enable_loop_closing
 
 
 # ---------------------------------------------------------- vocabulary -----

@@ -94,8 +94,9 @@ def test_map_and_counters_agree(runs):
 
 @pytest.mark.parametrize("refused", ["rgbd", "pipelined", "split", "n_devices", "mapping"])
 def test_unported_modes_are_refused(refused):
-    """RGB-D is ported: alone it constructs, and it lifts none of the other
-    refusals (here the pipelined loop)."""
+    """RGB-D and mapping with loop closing are ported: alone each
+    constructs, and it lifts none of the other refusals (here the pipelined
+    loop)."""
     cfg = small_cfg(tcfg)
     kw = {}
     if refused == "rgbd":
@@ -110,6 +111,8 @@ def test_unported_modes_are_refused(refused):
         cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, n_devices=2))
     else:
         cfg = small_cfg(tcfg, only_tracking=False)
+        assert TSLAM(cfg, device="cpu").enable_loop_closing
+        cfg = small_cfg(tcfg, only_tracking=False, pipelined=True)
     with pytest.raises(NotImplementedError):
         TSLAM(cfg, device="cpu", **kw)
 
