@@ -3,6 +3,17 @@
 
     python3 chip_smoke.py
 
+Tracking on the card replays the frame program as a captured CUDA graph
+(``pipeline/frame_graph.py``): every phase below runs through it.  "Each
+kernel launches once a frame" below is checked call by call: the kernel
+wrappers count the launches they make (a frame run eagerly, the first frame
+of a graph, the frontend of an initializing or relocalizing frame) and none
+for a replay, and in every run that replays, call 5 is traced by the
+profiler, where the device must run each kernel once per replay.  Frame
+ms is the host's time until ``track`` returns (no synchronise after a call,
+so a pipelined call returns while its frame runs); the mapping and loop
+runs also print their wall time from call 6 to the end of ``flush()``.
+
 Phases (one line each; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit); no CUDA device → exit 1;
   2. build every CUDA kernel from ``orb_slam2_ros2_tpu_torch/csrc`` (nvcc);
@@ -66,11 +77,30 @@ Phases (one line each; any failure raises and exits non-zero):
      kernel's device time at the main-path shapes (``device_ms``:
      back-to-back calls between one event pair, over the count) beside its
      plain version, its bound and, for K2, the one PyTorch call that gathers
-     the same windows.
+     the same windows;
+ 11. graph + pipelined: phase 5's frames through the graph and through the
+     eager program in turns, poses, stats vectors, local maps and the map
+     bit-equal and one capture; one more frame of each under the profiler
+     (kernel launches outside the graph, the graph launch, K1 and K2 each
+     once inside the replay); phase 6's world again eagerly and with
+     ``tracking.pipelined`` on the graph (every frame in order in the
+     trajectory, phase 6's ATE gates, ATE ≤ 1.5 × the synchronous run's +
+     0.03 m, keyframes within ±3), frame ms of eager, graph and pipelined,
+     captures, bytes copied into the map storage and a full copy's device
+     time; phase 9's loop world pipelined (a loop closes with a frame in
+     flight, every frame in order, phase 9's ATE gates, keyframes within ±3
+     of phase 9's); a pipelined
+     blackout (three blank frames in phase 6's world with loop closing on:
+     LOST only on them, a relocalization, the last six calls tracked); the
+     batched relocalization's launches and ms (profiled in phase 7) beside
+     its inliers and errors.
 
-Before the last line come a JSON object with one entry per kernel (launches
-summed over the five main-path runs) and the card line; the last line is
-``{"ok": true, "device": {...}}``.
+Before the last line come a JSON object with one entry per kernel and the
+card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
+``launches``, summed over the main-path runs of every phase, is its
+wrapper's count (``launches_by_wrapper``) plus one a graph replay
+(``launches_in_graph_replays``); ``graph_replays_profiled`` counts the
+replays the profiler saw.
 """
 
 from __future__ import annotations
@@ -145,6 +175,7 @@ MAX_ATE_RGBD = 0.04      # fraction of path length (tests/test_rgbd.py:47)
 LOOP_FRAMES = 100
 LOOP_PERIOD = LOOP_FRAMES - 4
 LOOP_EXTRA = 40          # second-lap frames at most, until the GBA commits
+PROFILED_CALL = 5        # the call of each run traced by the profiler (a replay)
 
 
 def gpu_line() -> str:
@@ -289,28 +320,74 @@ def k2_check(canvas, centers) -> float:
     return float((ker - ref).abs().max())
 
 
+# frame-graph replays of the current run, and replays seen by the profiler
+# (the kernels inside a replay are launched by the CUDA graph, not by a wrapper)
+_replays = {"run": 0, "profiled": 0}
+
+
 def _reset_launches() -> None:
     fast.fast_nms_launches = 0
     patches.patch_launches = 0
+    _replays["run"] = 0
 
 
 def _launches() -> dict:
-    return {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches}
+    """The wrappers' launch counts (eager launches) and the frame-graph
+    replays of the current run."""
+    return {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches,
+            "replays": _replays["run"]}
 
 
-def _track(slam: SLAM, label, img_a, img_b):
-    """One ``track`` call ended by a synchronise: (pose, stats, ms), after
-    checking that it launched each kernel exactly once."""
-    before = _launches()
+def _graph_counts(slam: SLAM) -> tuple:
+    """(replays, captures) of the SLAM's frame graphs; (0, 0) on the eager path."""
+    g = slam._frame_graphs
+    return (0, 0) if g is None else (g.replays, g.captures)
+
+
+def _track(slam: SLAM, label, img_a, img_b, profile: bool = False):
+    """One ``track`` call: (pose, stats, ms), ms the host's time until the
+    call returned (no synchronise after it: a pipelined call returns while
+    its frame runs, and a run's wall time ends with one).  Checks
+    that each kernel's wrapper launched once a frame program run eagerly —
+    the first frame of a graph (its capture launches nothing), every frame
+    of the eager path, the frontend of a frame without a frame program
+    (initialization, relocalization) — and none for a replay.  With
+    ``profile`` the call runs under the profiler, must replay a frame
+    graph, and the device must run each kernel once per replay on top of
+    the wrappers' launches (the ms is then the traced wall time)."""
+    before, (r0, c0) = _launches(), _graph_counts(slam)
     t0 = time.perf_counter()
-    pose, stats = slam.track(img_a, img_b)
-    torch.cuda.synchronize()
+    if profile:
+        prof = kernel_profile(lambda: slam.track(img_a, img_b))
+        pose, stats = prof.pop("result")
+    else:
+        pose, stats = slam.track(img_a, img_b)
     ms = (time.perf_counter() - t0) * 1000.0
+    r1, c1 = _graph_counts(slam)
+    replays, captures = r1 - r0, c1 - c0
+    want = captures if (captures or replays) else 1
     k1, k2 = (_launches()[k] - before[k] for k in ("fast_nms", "patches"))
-    if k1 != 1 or k2 != 1:
+    if k1 != want or k2 != want:
         raise AssertionError(f"frame {label}: kernel launches fast_nms {k1}, patches {k2}; "
-                             f"a frame launches each once")
+                             f"this call ran {want} frame program(s) eagerly, {replays} replay(s)")
+    _replays["run"] += replays
+    if profile:
+        seen = _kernel_counts(prof)
+        if replays < 1 or seen != {"fast_nms": k1 + replays, "patches": k2 + replays}:
+            raise AssertionError(f"frame {label} profiled: {replays} replay(s), {k1} eager launches, "
+                                 f"the device ran {seen}")
+        _replays["profiled"] += replays
     return pose, stats, ms
+
+
+def _captures(slam: SLAM) -> int:
+    """The SLAM's frame-graph captures, after checking that no graph was
+    captured twice: the phases keep their map's capacities, so a graph is
+    captured at the first use of its threshold and image shapes only."""
+    log = slam._frame_graphs.capture_log
+    if len(set(log)) != len(log):
+        raise AssertionError(f"a frame graph was captured again without a capacity change: {log}")
+    return len(log)
 
 
 def _trans_err(pose, Twc_gt) -> float:
@@ -329,13 +406,13 @@ def run_slice(cfg: SLAMConfig):
     records = []
     for i, (img_l, img_r, Twc_gt) in enumerate(frames):
         slam.frame_sync_debug_mode = "error" if i >= 2 else None
-        pose, stats, ms = _track(slam, i, img_l, img_r)
+        pose, stats, ms = _track(slam, i, img_l, img_r, profile=i == PROFILED_CALL)
         if slam.state != TrackState.OK or pose is None:
             raise AssertionError(f"frame {i}: state {slam.state}, stats {stats}")
         err = _trans_err(pose, Twc_gt)
-        rec = dict(frame=i, ms=ms, trans_err_m=err, n_inliers=stats.get("n_inliers"),
+        rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/10] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/11] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -344,18 +421,27 @@ def run_slice(cfg: SLAMConfig):
     med = statistics.median(r["n_inliers"] for r in records[1:])
     if med < MIN_MEDIAN_INLIERS:
         raise AssertionError(f"median n_inliers {med} < {MIN_MEDIAN_INLIERS}")
+    if _captures(slam) != 1:
+        raise AssertionError(f"localization: {_captures(slam)} captures")
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/11"):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
-    KITTI-like synthetic sequence.  Returns (per-frame records, launch
-    counts of the main-path run, summary)."""
+    KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
+    card: the frame program replayed as a CUDA graph), "eager" (the frame
+    program launched op by op) or "pipelined" (``tracking.pipelined`` on
+    the graph).  Returns (per-frame records, launch counts of the main-path
+    run, summary, the SLAM, the frames)."""
     ds = SyntheticStereoDataset(cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
                                 box_scale=2.5, sky=True, device="cuda")
     frames = [ds.frame(i) for i in range(MAP_FRAMES)]  # rendered on the card, set-up
     gt_twc = {i: g for i, (_, _, g) in enumerate(frames)}
+    if mode == "pipelined":
+        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=True))
     slam = SLAM(cfg, enable_loop_closing=False, device="cuda")
+    if mode == "eager":
+        slam._frame_graphs = None
     slam.time_programs = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -364,18 +450,23 @@ def run_mapping(cfg: SLAMConfig):
     local_ba.local_ba_runs = 0
     records = []
     for i, (img_l, img_r, _) in enumerate(frames):
+        if i == PROFILED_CALL + 1:
+            t_window = time.perf_counter()
         n_kf_before = slam._n_kf
         slam.frame_sync_debug_mode = "error" if i >= 2 else None
-        pose, stats, ms = _track(slam, i, img_l, img_r)
-        if slam.state != TrackState.OK or pose is None:
+        profiled = mode != "eager" and i == PROFILED_CALL
+        pose, stats, ms = _track(slam, i, img_l, img_r, profile=profiled)
+        fill = mode == "pipelined" and stats.get("pipeline_fill")
+        if slam.state != TrackState.OK or (pose is None and not fill):
             raise AssertionError(f"frame {i}: state {slam.state}, stats {stats}")
-        rec = dict(frame=i, ms=ms, keyframe=slam._n_kf > n_kf_before,
+        rec = dict(frame=i, ms=ms, profiled=profiled, keyframe=slam._n_kf > n_kf_before,
                    n_inliers=stats.get("n_inliers"), n_tracked=stats.get("n_tracked"),
                    n_kf=slam._n_kf, next_mp=stats.get("next_mp"))
-        print(f"[6/10] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] {mode} frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_window
     slam.frame_sync_debug_mode = None
     launches = _launches()
 
@@ -391,11 +482,17 @@ def run_mapping(cfg: SLAMConfig):
 
     path_len = float(sum(np.linalg.norm(gt_twc[i + 1][:3, 3] - gt_twc[i][:3, 3])
                          for i in range(MAP_FRAMES - 1)))
+    if [f for f, _ in slam.trajectory] != list(range(MAP_FRAMES)):
+        raise AssertionError(f"{mode}: trajectory holds frames {[f for f, _ in slam.trajectory]}")
     ate_live, ate_final = ate(slam.trajectory), ate(slam.final_trajectory())
     spans = {}
     for name, start, end in slam.program_events:
         spans.setdefault(name, []).append(start.elapsed_time(end))
     summary = dict(
+        mode=mode, wall_s_from_call_6=window_s,
+        frame_graph_captures=_captures(slam) if slam._frame_graphs else 0,
+        capture_log=slam._frame_graphs.capture_log if slam._frame_graphs else [],
+        map_copy_bytes=slam.map_copy_bytes,
         new_keyframes=new_kfs, local_ba_runs=local_ba.local_ba_runs,
         n_keyframes=slam.n_keyframes, n_mappoints=slam.n_mappoints,
         ate_live_m=ate_live, ate_final_m=ate_final, path_len_m=path_len,
@@ -403,7 +500,7 @@ def run_mapping(cfg: SLAMConfig):
         program_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v))
                          for k, v in spans.items()},
     )
-    print(f"[6/10] mapping: {json.dumps(summary)}", flush=True)
+    print(f"[{tag}] {mode} mapping: {json.dumps(summary, default=str)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path_len:
         raise AssertionError(f"live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path_len:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path_len:
@@ -451,12 +548,12 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
         # the frame program of the tracked frames runs without host syncs
         slam.frame_sync_debug_mode = "error" if kind == "track" and n >= 2 else None
         img_l, img_r, Twc_gt = frames[i] if i is not None else (blank, blank, None)
-        pose, stats, ms = _track(slam, f"{kind} {i}", img_l, img_r)
-        rec = dict(kind=kind, frame=i, ms=ms, state=slam.state.name,
+        pose, stats, ms = _track(slam, f"{kind} {i}", img_l, img_r, profile=n == PROFILED_CALL)
+        rec = dict(kind=kind, frame=i, ms=ms, profiled=n == PROFILED_CALL, state=slam.state.name,
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/10] {json.dumps(rec)}", flush=True)
+        print(f"[7/11] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -469,14 +566,25 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                 raise AssertionError(f"frame {i} did not relocalize: {stats}")
         records.append(rec)
     slam.frame_sync_debug_mode = None
+    # one more relocalizing frame under the profiler: the batched cascade's
+    # launches and kernel time
+    slam.state = TrackState.LOST
+    img_l, img_r, Twc_gt = frames[RELOC_FRAME]
+    prof = kernel_profile(lambda: slam.track(img_l, img_r))
+    del prof["result"]
+    if slam.state != TrackState.OK:
+        raise AssertionError("the profiled relocalization failed")
     if slam.n_keyframes != map_slam.n_keyframes:
         raise AssertionError("localization mode inserted a keyframe")
     summary = dict(save_ms=save_ms, load_ms=load_ms, rebuild_ms=rebuild_ms, map_files_mib=file_mib,
+                   frame_graph_captures=_captures(slam), capture_log=slam._frame_graphs.capture_log,
                    n_keyframes=slam.n_keyframes, kf_capacity=slam.map.kf_capacity,
                    n_words=vocab.n_words,
                    reloc_ms=[r["ms"] for r in records if r["kind"] == "reloc"],
                    lost_ms=[r["ms"] for r in records if r["kind"] == "blank"],
-                   track_ms_median=statistics.median(r["ms"] for r in records if r["kind"] == "track"))
+                   track_ms_median=statistics.median(r["ms"] for r in records
+                                                     if r["kind"] == "track" and not r["profiled"]),
+                   reloc_profile=prof)
     return records, _launches(), summary
 
 
@@ -507,13 +615,14 @@ def run_rgbd(cfg: SLAMConfig):
     for i, (rgb, depth, Twc_gt) in enumerate(frames):
         n_kf_before = slam._n_kf
         slam.frame_sync_debug_mode = "error" if i >= 2 else None
-        pose, stats, ms = _track(slam, i, rgb, depth)
+        pose, stats, ms = _track(slam, i, rgb, depth, profile=i == PROFILED_CALL)
         if slam.state != TrackState.OK or pose is None:
             raise AssertionError(f"frame {i}: state {slam.state}, stats {stats}")
-        rec = dict(frame=i, ms=ms, keyframe=slam._n_kf > n_kf_before, n_inliers=stats.get("n_inliers"),
+        rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, keyframe=slam._n_kf > n_kf_before,
+                   n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/10] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/11] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -523,6 +632,7 @@ def run_rgbd(cfg: SLAMConfig):
     ate = ate_rmse([np.linalg.inv(T.astype(np.float64)) for _, T in slam.trajectory], gt)
     path_len = float(sum(np.linalg.norm(gt[i + 1][:3, 3] - gt[i][:3, 3]) for i in range(RGBD_FRAMES - 1)))
     summary = dict(ate_m=ate, path_len_m=path_len, n_keyframes=slam.n_keyframes,
+                   frame_graph_captures=_captures(slam),
                    n_mappoints=slam.n_mappoints, init_mappoints=records[0]["n_mappoints"])
     if not ate < MAX_ATE_RGBD * path_len:
         raise AssertionError(f"RGB-D ATE {ate:.4f} m ≥ {MAX_ATE_RGBD} × {path_len:.3f} m")
@@ -537,14 +647,18 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig):
+def run_loop(cfg: SLAMConfig, tag: str = "9/11"):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
     detection dispatches and GBA chunks run under sync debug "error"; the
     stages that may read back run under "warn", and a frame's reads are its
     warnings plus its waits for a gate or detection copy (the debug mode
-    does not see event waits).  Returns (records, launch counts, summary)."""
+    does not see event waits).  With ``tracking.pipelined`` a call returns
+    the previous frame's pose (the fill marker on the first) and every frame
+    must reach the trajectory in order.  Returns (records, launch counts,
+    summary)."""
+    pipelined = cfg.tracking.pipelined
     ds = SyntheticStereoDataset(cfg.camera, n_frames=LOOP_FRAMES, circle=True, box_scale=2.5,
                                 device="cuda")
     frames = [ds.frame(i) for i in range(LOOP_FRAMES)]  # rendered on the card, set-up
@@ -568,13 +682,15 @@ def run_loop(cfg: SLAMConfig):
         else:
             j = ((i - 4) % LOOP_PERIOD) + 4
         img_l, img_r, Twc_gt = frames[j]
+        if i == PROFILED_CALL + 1:
+            t_window = time.perf_counter()
         n_events, loops = len(slam.program_events), slam.loops_closed
         waits = slam.loop_closer.host_reads if slam.loop_closer is not None else 0
         slam.frame_sync_debug_mode = "error" if i >= 2 else None
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            pose, stats, ms = _track(slam, i, img_l, img_r)
-        if slam.state != TrackState.OK or pose is None:
+            pose, stats, ms = _track(slam, i, img_l, img_r, profile=i == PROFILED_CALL)
+        if slam.state != TrackState.OK or (pose is None and not (pipelined and stats.get("pipeline_fill"))):
             raise AssertionError(f"loop frame {i}: state {slam.state}, stats {stats}")
         stages = sorted({name for name, _, _ in slam.program_events[n_events:]})
         reads = (sum("synchroniz" in str(w.message) for w in caught)
@@ -587,12 +703,13 @@ def run_loop(cfg: SLAMConfig):
             commit_frame = i
         rec = dict(frame=i, src=j, ms=ms, n_kf=slam._n_kf, n_inliers=stats.get("n_inliers"),
                    reads=reads, stages=stages, loops=slam.loops_closed)
-        print(f"[9/10] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
         gt.append(Twc_gt)
         i += 1
     slam.flush()
     torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_window
     slam.frame_sync_debug_mode = None
     launches = _launches()
 
@@ -603,6 +720,8 @@ def run_loop(cfg: SLAMConfig):
                              f"gates {slam.loop_closer.gate_log if slam.loop_closer else None}")
     if slam._pending_gba is not None:
         raise AssertionError("the background GBA is still pending after flush()")
+    if [f for f, _ in slam.trajectory] != list(range(len(records))):
+        raise AssertionError(f"the trajectory holds frames {[f for f, _ in slam.trajectory]}")
 
     def ate(pairs):
         return ate_rmse([np.linalg.inv(T.astype(np.float64)) for _, T in pairs], [gt[f] for f, _ in pairs])
@@ -618,11 +737,13 @@ def run_loop(cfg: SLAMConfig):
                      if closure_start is not None else None)
     summary = dict(
         frames=len(records), closure_frame=closure_frame, cascade_start_frame=closure_start,
+        frame_graph_captures=_captures(slam),
         commit_frame=commit_frame, loop_edges=edges, loops_closed=slam.loops_closed,
         gates=[g for g in slam.loop_closer.gate_log],
         n_keyframes=slam.n_keyframes, n_mappoints=slam.n_mappoints,
         ate_live_m=ate_live, ate_final_m=ate_final, path_len_m=path_len,
-        median_frame_ms=med, max_after_closure_ms=max(after) if after else None,
+        median_frame_ms=med, wall_s_from_call_6=window_s,
+        max_after_closure_ms=max(after) if after else None,
         spike_ratio=max(after) / med if after else None,
         reads_closure=closure_reads, reads_by_frame={r["frame"]: r["reads"] for r in records if r["reads"]},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
@@ -631,7 +752,7 @@ def run_loop(cfg: SLAMConfig):
         keyframe_span_ms={k: dict(n=len(spans[k]), median=statistics.median(spans[k]), max=max(spans[k]))
                           for k in ("map_front", "map_tail", "cull_kfs", "loop_detect") if k in spans},
     )
-    print(f"[9/10] loop: {json.dumps(summary)}", flush=True)
+    print(f"[{tag}] loop{' pipelined' if pipelined else ''}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path_len:
         raise AssertionError(f"loop live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path_len:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path_len:
@@ -641,8 +762,190 @@ def run_loop(cfg: SLAMConfig):
     return records, launches, summary
 
 
+def kernel_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: the host's kernel launches
+    (`cudaLaunchKernel`, `cuLaunchKernel`), graph launches and copies, the K1 / K2 kernels
+    the device ran with their counts, the device's kernel time, the wall ms
+    (inflated by the tracing) and ``fn``'s result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000.0
+    api, kernels, dev_us, dev_kernels = {}, {}, 0.0, 0
+    for e in prof.key_averages():
+        if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpy",
+                             "cudaMemset")):
+            api[e.key] = api.get(e.key, 0) + e.count
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            dev_us += getattr(e, "self_device_time_total", 0.0)
+            if not e.key.lower().startswith(("memcpy", "memset")):
+                dev_kernels += e.count
+            if "fast_nms_kernel" in e.key or "patches_kernel" in e.key:
+                kernels[e.key] = e.count
+    launches = sum(n for k, n in api.items() if "LaunchKernel" in k)
+    return dict(launches=launches, graph_launches=sum(n for k, n in api.items() if "GraphLaunch" in k),
+                device_kernels=dev_kernels, api=api, kernels=kernels, kernel_ms=dev_us / 1000.0,
+                wall_ms=wall, result=result)
+
+
+def _kernel_counts(prof: dict) -> dict:
+    """K1 and K2 runs the device made in a profile, by kernel."""
+    return {name: sum(n for k, n in prof["kernels"].items() if f"{name}_kernel" in k)
+            for name in ("fast_nms", "patches")}
+
+
+def _frame_outputs(slam: SLAM) -> list:
+    """Keep the stats vector and the local map's ids of every frame program
+    the SLAM runs."""
+    seen = []
+    run_frame = slam._run_frame
+
+    def spy(*args):
+        out = run_frame(*args)
+        seen.append((out[2], out[3].mp_ids))
+        return out
+
+    slam._run_frame = spy
+    return seen
+
+
+def run_graph_vs_eager(cfg: SLAMConfig):
+    """The localization frames of phase 5 through the captured frame graph
+    and through the eager program, frame by frame in turns in this one
+    call: poses, stats, every stats vector, the local maps' ids and the
+    final map bit-equal; one capture; then one more frame of each under the
+    profiler.  Returns (launch counts, summary)."""
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=N_FRAMES + 2, speed=SPEED, device="cuda")
+    frames = [ds.frame(i) for i in range(N_FRAMES + 2)]  # rendered on the card, set-up
+    slams = {"eager": SLAM(cfg, device="cuda"), "graph": SLAM(cfg, device="cuda")}
+    slams["eager"]._frame_graphs = None
+    seen = {k: _frame_outputs(s) for k, s in slams.items()}
+    ms = {k: [] for k in slams}
+    torch.cuda.synchronize()
+    _reset_launches()
+    for i, (img_l, img_r, _) in enumerate(frames[:N_FRAMES]):
+        out = {}
+        for k in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            slams[k].frame_sync_debug_mode = "error" if i >= 2 else None
+            pose, stats, t = _track(slams[k], f"{k} {i}", img_l, img_r)
+            if slams[k].state != TrackState.OK or pose is None:
+                raise AssertionError(f"{k} frame {i}: state {slams[k].state}, stats {stats}")
+            out[k] = (pose, stats)
+            ms[k].append(t)
+        if not np.array_equal(out["eager"][0], out["graph"][0]) or out["eager"][1] != out["graph"][1]:
+            raise AssertionError(f"frame {i}: graph {out['graph']} differs from eager {out['eager']}")
+    launches = _launches()
+    if len(seen["eager"]) != len(seen["graph"]) or not all(
+            torch.equal(a, b) and torch.equal(c, d) for (a, c), (b, d) in zip(seen["eager"], seen["graph"])):
+        raise AssertionError("a stats vector or a local map differs between graph and eager")
+    for name, a, b in zip(slams["eager"].map._fields, slams["eager"].map, slams["graph"].map):
+        if not torch.equal(a, b):
+            raise AssertionError(f"map field {name} differs between graph and eager")
+    graphs = slams["graph"]._frame_graphs
+    if graphs.captures != 1:
+        raise AssertionError(f"{graphs.captures} captures over one threshold and one map")
+    prof = {}
+    for k, s in slams.items():
+        s.frame_sync_debug_mode = None
+        prof[k] = kernel_profile(lambda: s.track(*frames[N_FRAMES][:2]))
+        del prof[k]["result"]
+        _, _, prof[k]["untraced_ms"] = _track(s, f"{k} {N_FRAMES + 1}", *frames[N_FRAMES + 1][:2])
+    g = prof["graph"]
+    k_counts = sorted(g["kernels"].values())
+    if g["graph_launches"] != 1 or len(g["kernels"]) != 2 or k_counts != [1, 1]:
+        raise AssertionError(f"a replayed frame: {g['graph_launches']} graph launches, kernels {g['kernels']}")
+    summary = dict(frames=N_FRAMES, captures=graphs.captures, capture_log=graphs.capture_log,
+                   eager_ms_median=statistics.median(ms["eager"][2:]),
+                   graph_ms_median=statistics.median(ms["graph"][2:]),
+                   eager_ms=[round(x, 3) for x in ms["eager"]], graph_ms=[round(x, 3) for x in ms["graph"]],
+                   profile=prof)
+    return launches, summary
+
+
+def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
+    """Phase 6's 40 mapping frames again, eagerly and pipelined on the graph,
+    in this call: the pipelined run's trajectory holds every frame in order,
+    its ATE passes phase 6's gates and stays within 1.5 × the synchronous
+    run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
+    of both runs, summary, the pipelined SLAM)."""
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/11")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/11")
+    if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
+        raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
+                             f"{sync['ate_live_m']:.4f} m + 0.03")
+    if abs(pipe["n_keyframes"] - sync["n_keyframes"]) > 3:
+        raise AssertionError(f"pipelined {pipe['n_keyframes']} keyframes, sync {sync['n_keyframes']}")
+
+    def medians(records, run):
+        return dict(keyframe=_frame_ms(records, True), other=_frame_ms(records, False),
+                    all=_frame_ms(records), wall_s_from_call_6=run["wall_s_from_call_6"])
+
+    store = list(pipe_slam.map)
+    src = [t.clone() for t in store]
+    copy_ms = device_ms(lambda: torch._foreach_copy_(store, src), runs=20)
+    summary = dict(
+        frame_ms=dict(eager=medians(eager_records, eager), graph=medians(sync_records, sync),
+                      pipelined=medians(pipe_records, pipe)),
+        ate_m=dict(eager=(eager["ate_live_m"], eager["ate_final_m"]),
+                   graph=(sync["ate_live_m"], sync["ate_final_m"]),
+                   pipelined=(pipe["ate_live_m"], pipe["ate_final_m"])),
+        keyframes=dict(eager=eager["n_keyframes"], graph=sync["n_keyframes"], pipelined=pipe["n_keyframes"]),
+        captures=dict(graph=sync["frame_graph_captures"], pipelined=pipe["frame_graph_captures"]),
+        map_copy_bytes=dict(graph=sync["map_copy_bytes"], pipelined=pipe["map_copy_bytes"]),
+        full_map_bytes=sum(t.numel() * t.element_size() for t in store), full_map_copy_ms=copy_ms,
+    )
+    return (eager_launches, pipe_launches), summary
+
+
+def run_pipelined_blackout(cfg: SLAMConfig):
+    """Pipelined full SLAM with loop closing (its keyframe database is what
+    relocalization queries) over phase 6's world: frames 0-23, three blank
+    frames, then frames 14-23 again.  The loss is found one frame late, the
+    speculative frame abandoned, the next real frame relocalizes and the
+    rest track on.  Returns (launch counts, summary)."""
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=True))
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
+                                box_scale=2.5, sky=True, device="cuda")
+    frames = [ds.frame(i) for i in range(24)]  # rendered on the card, set-up
+    blank = torch.zeros_like(frames[0][0])
+    plan = list(range(24)) + [None] * 3 + list(range(14, 24))
+    slam = SLAM(cfg, device="cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    calls = []
+    for n, k in enumerate(plan):
+        img_l, img_r = (blank, blank) if k is None else frames[k][:2]
+        pose, stats, ms = _track(slam, f"blackout {n}", img_l, img_r, profile=n == PROFILED_CALL)
+        calls.append(dict(call=n, src=k, state=slam.state.name, pose=pose is not None,
+                          relocalized=bool(stats.get("relocalized")), n_inliers=stats.get("n_inliers"), ms=ms))
+    slam.flush()
+    torch.cuda.synchronize()
+    launches = _launches()
+    states = [c["state"] for c in calls]
+    lost = [c["call"] for c in calls if c["state"] == "LOST"]
+    reloc = [c["call"] for c in calls if c["relocalized"]]
+    if not lost or not all(plan[n] is None for n in lost):
+        raise AssertionError(f"blackout: LOST at calls {lost}, states {states}")
+    if not reloc or not all(c["state"] == "OK" and c["pose"] for c in calls[-6:]):
+        raise AssertionError(f"blackout: relocalized at {reloc}, last calls {calls[-6:]}")
+    fids = [f for f, _ in slam.trajectory]
+    if fids != sorted(fids) or fids[-6:] != list(range(len(plan) - 6, len(plan))):
+        raise AssertionError(f"blackout: trajectory {fids}")
+    summary = dict(lost_calls=lost, relocalized_calls=reloc, n_keyframes=slam.n_keyframes,
+                   captures=_captures(slam), trajectory_frames=len(fids),
+                   reloc_ms=[round(c["ms"], 1) for c in calls if c["relocalized"]],
+                   tracked_ms_after=statistics.median(c["ms"] for c in calls[-6:]))
+    return launches, summary
+
+
 def _frame_ms(records, keyframe=None):
-    ms = [r["ms"] for r in records[2:] if keyframe is None or r["keyframe"] == keyframe]
+    ms = [r["ms"] for r in records[2:]
+          if not r.get("profiled") and (keyframe is None or r["keyframe"] == keyframe)]
     return statistics.median(ms) if ms else float("nan")
 
 
@@ -651,12 +954,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     card = gpu_line()
-    print(f"[1/10] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/11] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/10] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/11] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -672,27 +975,28 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/10] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/11] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/10] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/11] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/10] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/11] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
-    print(f"[6/10] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    map_summary = summary
+    print(f"[6/11] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/10] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/11] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -700,15 +1004,15 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/10] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/11] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/10] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/11] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     _, loop_launches, loop = run_loop(base)
-    print(f"[9/10] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/11] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -728,7 +1032,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/10] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/11] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -739,7 +1043,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/10] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/11] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -748,23 +1052,63 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/10] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/11] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
-    runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches)
+    pair_launches, pair = run_graph_vs_eager(cfg)
+    print(f"[11/11] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+          f"local maps, map), {pair['captures']} capture; frame ms median eager "
+          f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
+          f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
+    (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
+    print(f"[11/11] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+          f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
+    _, pipe_loop_launches, pipe_loop = run_loop(
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/11")
+    print(f"[11/11] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+          f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
+          f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
+          f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
+          f"keyframes (sync {loop['n_keyframes']}), median frame {pipe_loop['median_frame_ms']:.1f} ms "
+          f"(sync {loop['median_frame_ms']:.1f}), wall from call 6 {pipe_loop['wall_s_from_call_6']:.3f} s "
+          f"(sync {loop['wall_s_from_call_6']:.3f}), launches {pipe_loop_launches}", flush=True)
+    if abs(pipe_loop["n_keyframes"] - loop["n_keyframes"]) > 3:
+        raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
+                             f"sync {loop['n_keyframes']}")
+    blackout_launches, blackout = run_pipelined_blackout(map_cfg)
+    print(f"[11/11] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/11] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+          f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
+          f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
+          f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
+
+    runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
+                     pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
+                     blackout_launches)
+    # launches: the wrappers' own (eager frames, first frames of graphs,
+    # frontends of frames without a frame program) plus one a replay of a
+    # frame graph — every run that replays had one of its replays traced by
+    # the profiler, with each kernel once inside it
+    replays = sum(x["replays"] for x in runs_launches)
+    counts = {}
+    for name in ("fast_nms", "patches"):
+        eager = sum(x[name] for x in runs_launches)
+        counts[name] = dict(launches=eager + replays, launches_by_wrapper=eager,
+                            launches_in_graph_replays=replays,
+                            graph_replays_profiled=_replays["profiled"])
+        if eager < 1 or replays < 1:
+            raise AssertionError(f"{name}: {eager} wrapper launches, {replays} graph replays on the main path")
     kernels = [
         {"name": "fast_nms", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/fast_nms.cu",
-         "replaces": "orb_slam2_ros2_tpu/ops/pallas_fast.py:109",
-         "launches": sum(x["fast_nms"] for x in runs_launches),
+         "replaces": "orb_slam2_ros2_tpu/ops/pallas_fast.py:109", **counts["fast_nms"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None, "bound_us": k1_bound * 1e3,
          "share": k1_bound / k1_ms},
         {"name": "patches", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/patches.cu",
-         "replaces": "orb_slam2_ros2_tpu/ops/pallas_patches.py:116",
-         "launches": sum(x["patches"] for x in runs_launches),
+         "replaces": "orb_slam2_ros2_tpu/ops/pallas_patches.py:116", **counts["patches"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib, "bound_us": k2_bound * 1e3,
          "share": k2_bound / k2_ms},

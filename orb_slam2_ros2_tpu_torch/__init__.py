@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of ``orb_slam2_ros2_tpu``.
 
 The JAX package is the reference this package is held against; this one runs
-stereo and RGB-D SLAM without loop closing — tracking, keyframe mapping with
-local BA, map save/load and relocalization in a saved map — on an NVIDIA GPU,
-with the two TPU kernels of that path replaced by CUDA C++ kernels written for
-Hopper (``csrc/``).  It imports torch and numpy only — never JAX.
+stereo and RGB-D SLAM — tracking (synchronous or pipelined, the frame program
+replayed as a CUDA graph), keyframe mapping with local BA, loop closing, map
+save/load and relocalization in a saved map — on an NVIDIA GPU, with the two
+TPU kernels of that path replaced by CUDA C++ kernels written for Hopper
+(``csrc/``).  ``entry.entry()`` returns the frame program and example inputs.
+It imports torch and numpy only — never JAX.
 """
 
 import torch as _torch

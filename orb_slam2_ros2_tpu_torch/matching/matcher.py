@@ -38,26 +38,28 @@ class MatchResult(NamedTuple):
 
 def best_match(dist: torch.Tensor, cand_mask: torch.Tensor, max_dist: int, ratio: float) -> MatchResult:
     """Masked best/second-best selection with ratio test per query row
-    (getBestMatch + ``best < th && best/second < ratio``)."""
+    (getBestMatch + ``best < th && best/second < ratio``); ``dist`` and
+    ``cand_mask`` are [..., Q, T]."""
     masked = torch.where(cand_mask, dist, BIG)
-    best = torch.amin(masked, dim=1)
-    best_idx = torch.argmin(masked, dim=1)
-    cols = torch.arange(masked.shape[1], device=masked.device)[None, :]
-    second = torch.amin(torch.where(cols == best_idx[:, None], BIG, masked), dim=1)
+    best = torch.amin(masked, dim=-1)
+    best_idx = torch.argmin(masked, dim=-1)
+    cols = torch.arange(masked.shape[-1], device=masked.device)
+    second = torch.amin(torch.where(cols == best_idx[..., None], BIG, masked), dim=-1)
     ok = (best <= max_dist) & (best.float() < ratio * second.float())
     return MatchResult(idx=torch.where(ok, best_idx, -1).to(torch.int32), dist=best)
 
 
 def mutual_filter(match_qt: MatchResult, n_target: int) -> MatchResult:
     """Keep only matches where each target is claimed by a single best query:
-    per target, the claiming query with the smallest (distance, index) key."""
-    q = match_qt.idx.shape[0]
+    per target, the claiming query with the smallest (distance, index) key.
+    Leading dimensions of ``match_qt`` are batch."""
+    *lead, q = match_qt.idx.shape
     dev = match_qt.idx.device
     tgt = torch.where(match_qt.found, match_qt.idx, n_target).long()
     order_key = torch.clamp(match_qt.dist, max=300) * (q + 1) + torch.arange(q, device=dev, dtype=torch.int32)
-    best_key = torch.full((n_target + 1,), INT32_MAX, dtype=torch.int32, device=dev)
-    best_key = best_key.scatter_reduce(0, tgt, order_key.to(torch.int32), reduce="amin")
-    keep = match_qt.found & (best_key[tgt] == order_key)
+    best_key = torch.full((*lead, n_target + 1), INT32_MAX, dtype=torch.int32, device=dev)
+    best_key = best_key.scatter_reduce(-1, tgt, order_key.to(torch.int32), reduce="amin")
+    keep = match_qt.found & (best_key.gather(-1, tgt) == order_key)
     return MatchResult(idx=torch.where(keep, match_qt.idx, -1), dist=match_qt.dist)
 
 
@@ -69,15 +71,18 @@ def rotation_consistency(
     n_keep: int = 3,
 ) -> torch.Tensor:
     """Keep matches whose angle difference falls in the ``n_keep``
-    most-populated histogram bins (reference verifyAngle)."""
+    most-populated histogram bins (reference verifyAngle); one histogram per
+    leading index of ``found``."""
     diff = torch.remainder(angle_q - angle_t_of_match, 360.0)
     bins = torch.clamp((diff / (360.0 / n_bins)).to(torch.int32), 0, n_bins - 1).long()
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=bins.device)
-    counts = counts.index_add(0, bins, found.to(torch.int32))
+    bins = bins.expand(found.shape)
+    lead = found.shape[:-1]
+    counts = torch.zeros((*lead, n_bins), dtype=torch.int32, device=bins.device)
+    counts = counts.scatter_add(-1, bins, found.to(torch.int32))
     topv, topi = topk_bounded(counts, n_keep)
-    good_bin = torch.zeros(n_bins, dtype=torch.bool, device=bins.device)
-    good_bin = good_bin.scatter(0, topi, topv > 0)
-    return found & good_bin[bins]
+    good_bin = torch.zeros((*lead, n_bins), dtype=torch.bool, device=bins.device)
+    good_bin = good_bin.scatter(-1, topi, topv > 0)
+    return found & good_bin.gather(-1, bins)
 
 
 def area_candidates(
@@ -127,12 +132,13 @@ def mappoint_visibility(
     n_levels: int,
 ):
     """MapPoint::isInVision + predictLevel, batched (MapPoint.cc:141-171,
-    :191-201): (uv [M,2], visible [M], pred_octave [M], cos_view [M])."""
-    pc = se3.apply(Tcw, mp_pos)
+    :191-201): (uv [M,2], visible [M], pred_octave [M], cos_view [M]).  A
+    pose batch ``Tcw [..., 4, 4]`` takes points ``[..., M, 3]``."""
+    pc = se3.apply(Tcw if Tcw.dim() == 2 else Tcw[..., None, :, :], mp_pos)
     uv, in_front = project(cam, pc)
-    in_img = (uv[:, 0] >= 0) & (uv[:, 0] < width) & (uv[:, 1] >= 0) & (uv[:, 1] < height)
+    in_img = (uv[..., 0] >= 0) & (uv[..., 0] < width) & (uv[..., 1] >= 0) & (uv[..., 1] < height)
     Twc = se3.inverse(Tcw)
-    ray = mp_pos - se3.t_of(Twc)
+    ray = mp_pos - se3.t_of(Twc)[..., None, :]
     dist = torch.linalg.vector_norm(ray, dim=-1)
     dist_ok = (dist >= 0.8 * mp_min_dist) & (dist <= 1.2 * mp_max_dist)
     cos_view = torch.sum(ray * mp_normal, dim=-1) / torch.clamp(dist, min=1e-9)
@@ -171,7 +177,9 @@ def search_mappoints_projection(
     """Local-map tracking search (ORBMatcher.cc:561-612): project map points,
     radius 2.5 (cos > 0.998) or 4.0, ×th, scaled by the predicted level,
     octave ±1 around it, ratio + threshold gates.  Returns per-map-point
-    match indices into the current frame."""
+    match indices into the current frame.  Leading dimensions of ``Tcw``,
+    the map-point tables and ``cur_has_mp`` are batch (one search per pose
+    against the same frame)."""
     if precomputed_vis is not None:
         uv, visible, level, cos_view = precomputed_vis
     else:
@@ -181,15 +189,15 @@ def search_mappoints_projection(
         )
     base_r = torch.where(cos_view > 0.998, 2.5, 4.0) * th
     r = base_r * torch.pow(scale_factor, level.float())
-    du = (uv[:, None, 0] - cur.uv[None, :, 0]).abs()
-    dv = (uv[:, None, 1] - cur.uv[None, :, 1]).abs()
-    in_area = (du <= r[:, None]) & (dv <= r[:, None])
-    oct_ok = (cur.octave[None, :] >= torch.clamp(level - 1, min=0)[:, None]) & (
-        cur.octave[None, :] <= torch.clamp(level + 1, max=n_levels - 1)[:, None]
+    du = (uv[..., :, None, 0] - cur.uv[None, :, 0]).abs()
+    dv = (uv[..., :, None, 1] - cur.uv[None, :, 1]).abs()
+    in_area = (du <= r[..., None]) & (dv <= r[..., None])
+    oct_ok = (cur.octave[None, :] >= torch.clamp(level - 1, min=0)[..., None]) & (
+        cur.octave[None, :] <= torch.clamp(level + 1, max=n_levels - 1)[..., None]
     )
-    cand = in_area & oct_ok & cur.valid[None, :] & visible[:, None] & mp_valid[:, None]
+    cand = in_area & oct_ok & cur.valid[None, :] & visible[..., None] & mp_valid[..., None]
     if exclude_taken:
-        cand = cand & (~cur_has_mp)[None, :]
+        cand = cand & (~cur_has_mp)[..., None, :]
     dist = hamming_matrix(mp_desc, cur.desc)
     m = best_match(dist, cand, max_dist, ratio)
     return mutual_filter(m, cur.capacity)

@@ -37,7 +37,8 @@ CIRCLE_OFFSETS = np.array(
 )
 
 # kernel launches made by fast_score_nms_pyramid and fast_score_nms (one per
-# call on a CUDA tensor)
+# call on a CUDA tensor; a call inside a CUDA-graph capture records the
+# kernel and launches nothing, so it counts nothing)
 fast_nms_launches = 0
 
 # the kernel's output tile and table capacity (csrc/fast_nms.cu OUT_W, OUT_H,
@@ -188,8 +189,9 @@ def fast_score_nms_pyramid(canvas: torch.Tensor, table: PyramidTable, threshold:
             float(threshold), int(bool(nms)), torch.cuda.current_stream(canvas.device).cuda_stream,
         )
     _build.check_launch(rc, "fast_nms")
-    global fast_nms_launches
-    fast_nms_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        global fast_nms_launches
+        fast_nms_launches += 1
     return _level_views(out, table)
 
 

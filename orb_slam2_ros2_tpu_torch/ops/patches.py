@@ -22,7 +22,8 @@ CENTER = 22          # patch centre offset (both axes)
 _WIN_ROWS = PATCH_ROWS + 8     # the TPU DMA window the clamp is defined by
 _WIN_COLS = PATCH_COLS + 192
 
-# kernel launches made by extract_patches_48x64 (one per call on a CUDA tensor)
+# kernel launches made by extract_patches_48x64 (one per call on a CUDA tensor;
+# a call inside a CUDA-graph capture records the kernel and counts nothing)
 patch_launches = 0
 
 
@@ -79,6 +80,7 @@ def extract_patches_48x64(canvas: torch.Tensor, centers_yx: torch.Tensor,
             torch.cuda.current_stream(canvas.device).cuda_stream,
         )
     _build.check_launch(rc, "patches")
-    global patch_launches
-    patch_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        global patch_launches
+        patch_launches += 1
     return out

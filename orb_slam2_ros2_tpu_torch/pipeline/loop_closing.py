@@ -59,13 +59,15 @@ from ..utils import mask_from_ids, set_drop, topk_bounded
 class HostCopy:
     """A device tensor on its way to the host: a ``non_blocking`` copy into
     pinned memory behind a CUDA event (a copy to pageable memory would
-    synchronise at once).  ``numpy()`` waits for the event."""
+    synchronise at once).  ``numpy()`` waits for the event.  The pinned
+    buffer and the event are new unless given (a reused pinned slot)."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, host: Optional[torch.Tensor] = None,
+                 event: Optional[torch.cuda.Event] = None):
         if t.is_cuda:
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if host is None else host
             self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
+            self._event = torch.cuda.Event() if event is None else event
             self._event.record()
         else:
             self._host, self._event = t.clone(), None

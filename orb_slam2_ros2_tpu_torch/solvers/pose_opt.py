@@ -33,8 +33,8 @@ class PoseObs(NamedTuple):
 
 def residuals_and_jac(cam: CameraParams, Tcw: torch.Tensor, obs: PoseObs):
     """Residuals r [M, 3] and Jacobians J = ∂r/∂ξ [M, 3, 6] for the update
-    T ← exp(ξ)·T."""
-    pc = se3.apply(Tcw, obs.pw)
+    T ← exp(ξ)·T (``[..., M, ...]`` for a pose batch ``Tcw [..., 4, 4]``)."""
+    pc = se3.apply(Tcw if Tcw.dim() == 2 else Tcw[..., None, :, :], obs.pw)
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     z = torch.where(z > 1e-6, z, 1e-6)
     inv_z = 1.0 / z
@@ -84,12 +84,17 @@ def optimize_pose(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (Tcw_opt, inlier_mask [M], n_inliers).
 
+    A batch of poses ``Tcw0 [..., 4, 4]`` solves one problem per leading
+    index: the observation fields broadcast against ``[..., M]`` (``valid``
+    or ``pw`` carry the batch, the frame's fields may be shared).
+
     Each round runs ``iters_per_round`` LM steps, then re-gates every
     observation against its χ² threshold (outliers may return); the Huber
     kernel is dropped for the last two rounds.  A loss beyond 1e4·χ²_th is
     constant (redescending), so a catastrophic mismatch cannot drag the pose.
     """
     dev = Tcw0.device
+    lead = Tcw0.shape[:-2]
     chi2_th = torch.where(obs.is_stereo, chi2_stereo, chi2_mono)
     inlier = obs.valid
     trunc = 1e4 * chi2_th
@@ -108,9 +113,9 @@ def optimize_pose(
             w = torch.where(chi2 < trunc, w, 0.0)
             if use_huber:
                 w = w * huber_weight(chi2, chi2_th)
-            wm = w[:, None] * dm  # [M, 3]
-            H = torch.einsum("mki,mk,mkj->ij", J, wm, J)
-            b = torch.einsum("mki,mk,mk->i", J, wm, r)
+            wm = w[..., None] * dm  # [..., M, 3]
+            H = torch.einsum("...mki,...mk,...mkj->...ij", J, wm, J)
+            b = torch.einsum("...mki,...mk,...mk->...i", J, wm, r)
             if use_huber:
                 c = torch.where(
                     chi2 <= chi2_th, chi2,
@@ -119,24 +124,24 @@ def optimize_pose(
                 c_cap = 2.0 * torch.sqrt(chi2_th * trunc) - chi2_th
             else:
                 c, c_cap = chi2, trunc
-            cost = torch.sum(torch.where(inlier, torch.minimum(c, c_cap), 0.0))
+            cost = torch.sum(torch.where(inlier, torch.minimum(c, c_cap), 0.0), dim=-1)
             return cost, H, b
 
         cost, H, b = terms(Tcw)
-        lam = torch.full((), damping, dtype=torch.float32, device=dev)
+        lam = torch.full(lead, damping, dtype=torch.float32, device=dev)
         for _ in range(iters_per_round):
-            Hd = H + lam * (eye6 + torch.diag(torch.diagonal(H)))
+            Hd = H + lam[..., None, None] * (eye6 + torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)))
             dx = -cholesky_solve_spd(Hd, b)
-            dx = torch.where(torch.isfinite(dx).all(), dx, 0.0)
+            dx = torch.where(torch.isfinite(dx).all(dim=-1, keepdim=True), dx, 0.0)
             T_new = se3.exp(dx) @ Tcw
             cost_new, H_new, b_new = terms(T_new)
             accept = cost_new < cost
-            Tcw = torch.where(accept, T_new, Tcw)
-            H = torch.where(accept, H_new, H)
-            b = torch.where(accept, b_new, b)
+            Tcw = torch.where(accept[..., None, None], T_new, Tcw)
+            H = torch.where(accept[..., None, None], H_new, H)
+            b = torch.where(accept[..., None], b_new, b)
             cost = torch.where(accept, cost_new, cost)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 8.0), 1e-7, 1e4)
         inlier = obs.valid & (chi2_per_obs(cam, Tcw, obs) < chi2_th)
 
     Tcw = se3.normalize(Tcw)
-    return Tcw, inlier, torch.sum(inlier.to(torch.int32))
+    return Tcw, inlier, torch.sum(inlier.to(torch.int32), dim=-1)

@@ -61,6 +61,19 @@ def set_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return buf[:n]
 
 
+def set_drop_rows(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``set_drop`` along the last axis of every leading index at once:
+    ``x [..., n]``, ``idx [..., q]`` and a tensor ``val [..., q]`` (or a
+    Python scalar).  Out-of-range indices of a row are dropped, repeated
+    ones keep that row's last writer."""
+    *lead, n = x.shape
+    rows = x.numel() // n
+    off = torch.arange(rows, device=x.device).reshape(*lead, 1) * n
+    flat = torch.where((idx >= 0) & (idx < n), idx.long() + off, rows * n).reshape(-1)
+    val = val.reshape(-1) if torch.is_tensor(val) else val
+    return set_drop(x.reshape(-1), flat, val).reshape(x.shape)
+
+
 def add_drop_(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """``x.at[idx].add(val, mode="drop")`` along dim 0, in place: out-of-range
     rows are clamped and add zero."""
@@ -83,3 +96,11 @@ def count_into(idx: torch.Tensor, n: int) -> torch.Tensor:
 def mask_from_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
     """bool[n] with True at every id in ``ids`` inside ``[0, n)``."""
     return count_into(ids, n) > 0
+
+
+def mask_from_ids_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``mask_from_ids`` of every leading index at once: bool ``[..., n]``
+    from ``ids [..., q]``."""
+    ok = (ids >= 0) & (ids < n)
+    out = torch.zeros((*ids.shape[:-1], n + 1), dtype=torch.bool, device=ids.device)
+    return out.scatter(-1, torch.where(ok, ids, n).long(), True)[..., :n]

@@ -138,3 +138,24 @@ def test_loop_walk_matches_jax():
     # nothing is left to drain
     ts.flush()
     assert ts._pending_gba is None and ts.loop_closer.pending_sim3 is None
+
+
+def test_loop_program_warmup_registers_keyframe_0_and_keeps_the_map():
+    """The warm-up that ``_ensure_loop_closer`` runs on CUDA, with or
+    without loop closing (the JAX system warms on every accelerator), called
+    on the CPU: it leaves keyframe 0 in an empty database with the row the
+    JAX database holds for it, no other row, and the live map
+    bit-identical."""
+    js, ts = setup_slams()
+    lc = ts.loop_closer
+    ts.loop_closer = tlc.LoopCloser(ts.cfg, lc.vocab)
+    ts.enable_loop_closing = False
+    before = [t.clone() for t in ts.map]
+    ts._warm_loop_programs()
+    for name, a, b in zip(ts.map._fields, before, ts.map):
+        assert torch.equal(a, b), name
+    db = ts.loop_closer.db
+    np.testing.assert_array_equal(db.word_ids[0].numpy(), np.asarray(js.loop_closer.db.word_ids[0]))
+    np.testing.assert_allclose(db.weights[0].numpy(), np.asarray(js.loop_closer.db.weights[0]), atol=1e-6)
+    assert (db.word_ids[0] >= 0).any() and not (db.word_ids[1:] >= 0).any()
+    assert ts.loop_closer.pending_sim3 is None and ts.loop_closer.consistent_groups == []

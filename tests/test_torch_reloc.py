@@ -308,11 +308,11 @@ def test_reloc_project_augment_matches_jax(built, jax_reloc):
     for th, max_dist in ((10.0, cfg.matcher.max_threshold), (3.0, cfg.matcher.min_threshold)):
         mj, nj = jsys.reloc_project_augment(js.map, cand, js.cam, frame, jnp.asarray(Tcw), jnp.asarray(cur_mp),
                                             th=th, max_dist=max_dist, **common)
-        for c in (cand, torch.tensor([cand])):
-            mt, nt = tsys.reloc_project_augment(ts, c, tcam, tf, torch.from_numpy(Tcw), torch.from_numpy(cur_mp),
-                                                th=th, max_dist=max_dist, **common)
-            assert mt.dtype == torch.int32 and int(nt) == int(nj)
-            np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+        # the port's cascade searches its candidates as one batch: a batch of one here
+        mt, nt = tsys.reloc_project_augment(ts, torch.tensor([cand]), tcam, tf, torch.from_numpy(Tcw)[None],
+                                            torch.from_numpy(cur_mp)[None], th=th, max_dist=max_dist, **common)
+        assert mt.dtype == torch.int32 and mt.shape[0] == 1 and int(nt[0]) == int(nj)
+        np.testing.assert_array_equal(mt[0].numpy(), np.asarray(mj))
         total += int(nj)
         kept = cur_mp >= 0
         np.testing.assert_array_equal(np.asarray(mj)[kept], cur_mp[kept])
@@ -344,6 +344,40 @@ def test_reloc_all_candidates_matches_jax(built, jax_reloc):
         assert diff <= 0.03 * (jax_reloc["cur_mp"][i] >= 0).sum(), (i, diff)
     # empty candidate slots are refused and keep their id
     assert (pt[cand_ids < 0, 0] == 0).all()
+
+
+@pytest.mark.parametrize("empty", ["two_slots", "every_slot"])
+def test_reloc_all_candidates_with_empty_slots_matches_jax(built, jax_reloc, empty):
+    """The batched cascade with empty (−1) candidate slots: two of the five,
+    then all five.  Accepted flags and candidate ids equal the JAX
+    cascade's on the same ids and minimal sets; an accepted row's inliers
+    and pose agree as above; an empty slot is never accepted."""
+    js, frame = jax_reloc["slam"], jax_reloc["frame"]
+    cand_ids = jax_reloc["cand_ids"].copy()
+    cand_ids[[1, 3] if empty == "two_slots" else slice(None)] = -1
+    pj, mpj = (np.asarray(x) for x in js._reloc_fused(js.map, js.cam, frame, jnp.asarray(cand_ids),
+                                                      jax_reloc["key"]))
+    sets = jax_cascade_sets(js, frame, cand_ids, jax_reloc["key"])
+    slam = load_port(built)
+    ts = convert.map_state_to_torch(jax.tree.map(np.asarray, js.map), "cpu")
+    tf = convert.stereo_frame_to_torch(jax.tree.map(np.asarray, frame), "cpu")
+    packed, cur_mp = tsys.reloc_all_candidates(ts, slam.cam, tf, torch.from_numpy(cand_ids),
+                                               sets=torch.from_numpy(sets), **slam._reloc_common)
+    pt = packed.numpy()
+    np.testing.assert_array_equal(pt[:, 0], pj[:, 0])
+    np.testing.assert_array_equal(pt[:, 2], pj[:, 2])
+    assert (pt[cand_ids < 0, 0] == 0).all() and (pt[cand_ids < 0, 2] == -1).all()
+    acc = pj[:, 0] > 0
+    if empty == "every_slot":
+        assert not acc.any()
+        return
+    assert acc.any()
+    assert np.abs(pt[acc, 1] - pj[acc, 1]).max() <= 0.03 * pj[acc, 1].max()
+    Tt, Tj = pt[acc, 3:].reshape(-1, 4, 4), pj[acc, 3:].reshape(-1, 4, 4)
+    assert np.abs(Tt[:, :3, 3] - Tj[:, :3, 3]).max() <= 5e-3
+    assert rot_deg(Tj, Tt).max() <= 0.05
+    for i in np.flatnonzero(acc):
+        assert (cur_mp[i].numpy() != mpj[i]).sum() <= 0.03 * (mpj[i] >= 0).sum()
 
 
 # --------------------------------------------------------------- the slice --

@@ -94,25 +94,31 @@ def test_map_and_counters_agree(runs):
 
 @pytest.mark.parametrize("refused", ["rgbd", "pipelined", "split", "n_devices", "mapping"])
 def test_unported_modes_are_refused(refused):
-    """RGB-D and mapping with loop closing are ported: alone each
-    constructs, and it lifts none of the other refusals (here the pipelined
-    loop)."""
+    """RGB-D, mapping with loop closing and the pipelined loop are ported:
+    alone each constructs, and it lifts none of the other refusals (here the
+    tracker/mapper split)."""
     cfg = small_cfg(tcfg)
     kw = {}
+
+    def split(c):
+        return c.replace(dist=dataclasses.replace(c.dist, tracker_mapper_split=True))
+
     if refused == "rgbd":
         kw["rgbd"] = True
         assert TSLAM(cfg, device="cpu", **kw).rgbd
-        cfg = small_cfg(tcfg, pipelined=True)
+        cfg = split(cfg)
     elif refused == "pipelined":
         cfg = small_cfg(tcfg, pipelined=True)
+        assert TSLAM(cfg, device="cpu")._pipelined
+        cfg = split(cfg)
     elif refused == "split":
-        cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, tracker_mapper_split=True))
+        cfg = split(cfg)
     elif refused == "n_devices":
         cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, n_devices=2))
     else:
         cfg = small_cfg(tcfg, only_tracking=False)
         assert TSLAM(cfg, device="cpu").enable_loop_closing
-        cfg = small_cfg(tcfg, only_tracking=False, pipelined=True)
+        cfg = split(cfg)
     with pytest.raises(NotImplementedError):
         TSLAM(cfg, device="cpu", **kw)
 
