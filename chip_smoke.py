@@ -8,8 +8,9 @@ Tracking on the card replays the frame program as a captured CUDA graph
 kernel launches once a frame" below is checked call by call: the kernel
 wrappers count the launches they make (a frame run eagerly, the first frame
 of a graph, the frontend of an initializing or relocalizing frame) and none
-for a replay, and in every run that replays, call 5 is traced by the
-profiler, where the device must run each kernel once per replay.  Frame
+for a replay, and in every run that replays, one replay is traced by the
+profiler (call 5; call 10 of a phase-12 CLI run, after the loop programs'
+warm-up), where the device must run each kernel once per replay.  Frame
 ms is the host's time until ``track`` returns (no synchronise after a call,
 so a pipelined call returns while its frame runs); the mapping and loop
 runs also print their wall time from call 6 to the end of ``flush()``.
@@ -93,10 +94,29 @@ Phases (one line each; any failure raises and exits non-zero):
      blackout (three blank frames in phase 6's world with loop closing on:
      LOST only on them, a relocalization, the last six calls tracked); the
      batched relocalization's launches and ms (profiled in phase 7) beside
-     its inliers and errors.
+     its inliers and errors;
+ 12. shell: a probe line (the versions of ``google.protobuf``, Pillow,
+     matplotlib and PyYAML, "missing" where absent, and whether the native
+     PNG decoder builds); ``python3 -m orb_slam2_ros2_tpu_torch.cli synth
+     --circle --frames 60`` as a subprocess (every frame tracked, ≥ 4
+     keyframes, ATE under 5% of the path, 60 rows in both trajectory
+     files); a 40-frame KITTI odometry layout at 1241×376 (8-bit PNGs
+     written here with zlib, the world ``synth`` renders at 0.8 m/frame)
+     run through ``cli.main`` in this process, every ``track`` call checked
+     as above: plain, saving ``--save-map m.pb``; ``--pipelined``, saving
+     ``--save-map mtxt/``; then a fresh run on each saved map
+     (``--load-map``); then ``--viewer`` (≥ 2 PNGs over 5000 bytes); call
+     10 of each run profiled.  Gates of ``tests/test_cli_e2e.py``: ≥ n − 2
+     frames tracked (n − 4 on a loaded map), ≥ 2 keyframes, ATE under 5% of
+     the path, n rows.  Each run prints the CLI's JSON line with its
+     launches, the decoder that served its images, the ms and bytes of its
+     map save or load, the CUDA-event spans of its keyframe programs and
+     loop stages, and its calls' ms grouped by the programs and stages each
+     ran.  A part whose library the probe found missing prints
+     ``"ran": false`` and why, and is not run; no ``--config`` is passed.
 
-Before the last line come a JSON object with one entry per kernel and the
-card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
+Before the last line come the run's total seconds, a JSON object with one
+entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
 ``launches``, summed over the main-path runs of every phase, is its
 wrapper's count (``launches_by_wrapper``) plus one a graph replay
 (``launches_in_graph_replays``); ``graph_replays_profiled`` counts the
@@ -109,11 +129,13 @@ import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -176,6 +198,17 @@ LOOP_FRAMES = 100
 LOOP_PERIOD = LOOP_FRAMES - 4
 LOOP_EXTRA = 40          # second-lap frames at most, until the GBA commits
 PROFILED_CALL = 5        # the call of each run traced by the profiler (a replay)
+# shell phase: the CLI at the default SLAMConfig(); the KITTI layout is the
+# world ``synth`` renders (the default box) at 0.8 m/frame
+SHELL_SYNTH_FRAMES = 60
+SHELL_FRAMES = 40
+SHELL_SPEED = 0.8
+SHELL_MAX_ATE = 0.05     # fraction of path length (tests/test_cli_e2e.py:150)
+SHELL_LOST_SYNTH = 0     # frames the synth run may lose
+SHELL_LOST = 2           # ... a kitti run (tests/test_cli_e2e.py:146)
+SHELL_LOST_LOADED = 4    # ... a run on a loaded map (tests/test_cli_e2e.py:211)
+SHELL_PROFILED_CALL = 10  # the traced call of each CLI run: a replay after the
+#                          loop programs' warm-up (call 5 or 6 of a mapping run)
 
 
 def gpu_line() -> str:
@@ -344,7 +377,7 @@ def _graph_counts(slam: SLAM) -> tuple:
     return (0, 0) if g is None else (g.replays, g.captures)
 
 
-def _track(slam: SLAM, label, img_a, img_b, profile: bool = False):
+def _track(slam: SLAM, label, img_a, img_b, profile: bool = False, track=None):
     """One ``track`` call: (pose, stats, ms), ms the host's time until the
     call returned (no synchronise after it: a pipelined call returns while
     its frame runs, and a run's wall time ends with one).  Checks
@@ -354,14 +387,16 @@ def _track(slam: SLAM, label, img_a, img_b, profile: bool = False):
     (initialization, relocalization) — and none for a replay.  With
     ``profile`` the call runs under the profiler, must replay a frame
     graph, and the device must run each kernel once per replay on top of
-    the wrappers' launches (the ms is then the traced wall time)."""
+    the wrappers' launches (the ms is then the traced wall time).  ``track``
+    replaces ``slam.track`` (phase 12 checks the CLI's own calls)."""
+    track = track or slam.track
     before, (r0, c0) = _launches(), _graph_counts(slam)
     t0 = time.perf_counter()
     if profile:
-        prof = kernel_profile(lambda: slam.track(img_a, img_b))
+        prof = kernel_profile(lambda: track(img_a, img_b))
         pose, stats = prof.pop("result")
     else:
-        pose, stats = slam.track(img_a, img_b)
+        pose, stats = track(img_a, img_b)
     ms = (time.perf_counter() - t0) * 1000.0
     r1, c1 = _graph_counts(slam)
     replays, captures = r1 - r0, c1 - c0
@@ -412,7 +447,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/11] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/12] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -426,7 +461,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/11"):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/12"):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -553,7 +588,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/11] {json.dumps(rec)}", flush=True)
+        print(f"[7/12] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -622,7 +657,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/11] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/12] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -647,7 +682,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/11"):
+def run_loop(cfg: SLAMConfig, tag: str = "9/12"):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -873,8 +908,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/11")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/11")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/12")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/12")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -943,6 +978,218 @@ def run_pipelined_blackout(cfg: SLAMConfig):
     return launches, summary
 
 
+# ------------------------------------------------------------------ shell --
+
+def probe_shell() -> dict:
+    """Versions of the shell's optional libraries ("missing" where absent)
+    and whether the native PNG decoder builds here."""
+    import importlib
+
+    from orb_slam2_ros2_tpu_torch.io import native_loader
+
+    out = {}
+    for mod in ("google.protobuf", "PIL", "matplotlib", "yaml"):
+        try:
+            out[mod] = getattr(importlib.import_module(mod), "__version__", "present")
+        except ImportError:
+            out[mod] = "missing"
+    out["native_decoder"] = "built" if native_loader.get_lib() is not None else native_loader.build_error
+    return out
+
+
+def write_png_gray8(path: str, img: np.ndarray) -> None:
+    """An 8-bit greyscale PNG (filter 0 on every row), written with zlib."""
+    h, w = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def path_length(poses_wc) -> float:
+    t = np.stack([np.asarray(T)[:3, 3] for T in poses_wc])
+    return float(np.linalg.norm(np.diff(t, axis=0), axis=1).sum())
+
+
+def write_kitti_layout(root: str, cfg: SLAMConfig, n: int, speed: float) -> float:
+    """A KITTI odometry sequence on disk (image_0/ image_1/ times.txt
+    poses.txt) of the world ``synth`` renders; returns its path length."""
+    from orb_slam2_ros2_tpu_torch.io.trajectory import write_kitti
+
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, d))
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=n, speed=speed, device="cuda")
+    poses = []
+    for i in range(n):
+        img_l, img_r, Twc = ds.frame(i)
+        for d, img in (("image_0", img_l), ("image_1", img_r)):
+            write_png_gray8(os.path.join(root, d, f"{i:06d}.png"),
+                            img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+        poses.append(Twc)
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.write("".join(f"{0.1 * i:.6f}\n" for i in range(n)))
+    write_kitti(os.path.join(root, "poses.txt"), poses)
+    return path_length(poses)
+
+
+def run_cli(argv) -> dict:
+    """``cli.main(argv)`` in this process, every ``SLAM.track`` it makes
+    checked by ``_track`` (each kernel once a frame program; call
+    SHELL_PROFILED_CALL traced, K1 and K2 once inside its replay) and its
+    ``save`` / ``load`` timed.  Returns the CLI's JSON line with the run's
+    launch counts, ms of save / load, the decoders that served its images,
+    the SLAM's frame-graph captures, the CUDA-event spans of its keyframe
+    programs and loop stages, and the calls' host ms grouped by the
+    programs and stages each call ran (calls ≥ 2, the traced one left
+    out)."""
+    import contextlib
+    import io
+
+    from orb_slam2_ros2_tpu_torch import cli
+    from orb_slam2_ros2_tpu_torch.io import datasets
+
+    orig = {name: getattr(SLAM, name) for name in ("track", "save", "load")}
+    rec = dict(calls=0, save_ms=None, load_ms=None, slam=None, ms=[], stages=[])
+
+    def track(self, img_a, img_b):
+        i = rec["calls"]
+        rec["calls"] += 1
+        rec["slam"] = self
+        self.time_programs = True
+        n_events = len(self.program_events)
+        pose, stats, ms = _track(self, i, img_a, img_b, profile=i == SHELL_PROFILED_CALL,
+                                 track=lambda a, b: orig["track"](self, a, b))
+        rec["ms"].append(ms)
+        rec["stages"].append("+".join(e[0] for e in self.program_events[n_events:]) or "none")
+        return pose, stats
+
+    def timed(name):
+        def call(self, path):
+            t0 = time.perf_counter()
+            orig[name](self, path)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1000.0
+        return call
+
+    decoded = dict(datasets.decoders)
+    out = io.StringIO()
+    _reset_launches()
+    SLAM.track, SLAM.save, SLAM.load = track, timed("save"), timed("load")
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    finally:
+        SLAM.track, SLAM.save, SLAM.load = orig["track"], orig["save"], orig["load"]
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    ms, slam = rec["ms"], rec["slam"]
+    torch.cuda.synchronize()
+    by_stages: dict = {}
+    for i, (x, stages) in enumerate(zip(ms, rec["stages"])):
+        if i >= 2 and i != SHELL_PROFILED_CALL:
+            by_stages.setdefault(stages, []).append(x)
+    slowest = int(np.argmax(ms))
+    res.update(launches=_launches(), save_ms=rec["save_ms"], load_ms=rec["load_ms"],
+               calls_0_4_ms=[round(x, 1) for x in ms[:5]], slowest_call=slowest,
+               slowest_call_ms=max(ms), slowest_call_stages=rec["stages"][slowest],
+               profiled_call=SHELL_PROFILED_CALL, profiled_call_stages=rec["stages"][SHELL_PROFILED_CALL],
+               call_ms_by_stages={k: dict(n=len(v), median=statistics.median(v), max=max(v))
+                                  for k, v in by_stages.items()},
+               program_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v), sum=sum(v))
+                                for k, v in _span_ms(slam).items()},
+               decoded={k: datasets.decoders[k] - decoded[k] for k in decoded},
+               captures=_captures(slam) if slam._frame_graphs is not None else 0)
+    return res
+
+
+def _check_run(part: str, res: dict, n: int, lost: int, path: float, out: str, min_keyframes: int = 1) -> None:
+    """The gates of a CLI run: frames tracked, keyframes, ATE under 5% of
+    the path, both trajectory files with a row a frame."""
+    rows = np.loadtxt(out + ".kitti.txt")
+    tum = np.loadtxt(out + ".tum.txt")
+    if res["frames"] != n or res["tracked"] < n - lost:
+        raise AssertionError(f"shell {part}: {res['tracked']} of {res['frames']} tracked, want ≥ {n - lost} of {n}")
+    if "ate_rmse" not in res or not res["ate_rmse"] < SHELL_MAX_ATE * path:
+        raise AssertionError(f"shell {part}: ATE {res.get('ate_rmse')} m ≥ {SHELL_MAX_ATE} × {path:.2f} m")
+    if rows.shape != (n, 12) or tum.shape != (n, 8):
+        raise AssertionError(f"shell {part}: trajectory files {rows.shape} and {tum.shape}")
+    if res["keyframes"] < min_keyframes:
+        raise AssertionError(f"shell {part}: {res['keyframes']} keyframes < {min_keyframes}")
+
+
+def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
+    """Phase 12: the port's CLI at ``cfg``, the default ``SLAMConfig()``
+    (the CLI's own when no ``--config`` is given).  ``synth`` as a
+    subprocess; ``kitti`` in this process on a disk layout — plain, saving
+    ``.pb``; pipelined, saving txt; on each saved map; with the viewer —
+    each gated, call SHELL_PROFILED_CALL of each traced.  Returns (the
+    launch counts of the in-process runs, the parts' records)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parts, launches = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        # synth through the real entry point, in its own process
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "orb_slam2_ros2_tpu_torch.cli", "synth", "--circle",
+               "--frames", str(SHELL_SYNTH_FRAMES), "--out", f"{tmp}/s", "--device", "cuda"]
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=here))
+        if proc.returncode != 0:
+            raise AssertionError(f"shell synth: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        synth_path = path_length(SyntheticStereoDataset(cfg.camera, n_frames=SHELL_SYNTH_FRAMES, circle=True,
+                                                        device="cpu").poses_wc)
+        _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
+        parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
+                          path_len_m=synth_path, **res))
+        print(f"[12/12] synth (python -m ..., its launches are counted in its own process): "
+              f"{json.dumps(parts[-1])}", flush=True)
+
+        seq = f"{tmp}/00"
+        t0 = time.perf_counter()
+        path = write_kitti_layout(seq, cfg, SHELL_FRAMES, SHELL_SPEED)
+        layout_s = time.perf_counter() - t0
+        kitti = ["kitti", "--seq", seq, "--device", "cuda"]
+        have_pb = probe["google.protobuf"] != "missing"
+        pb, txt = (f"{tmp}/m.pb", f"{tmp}/mtxt/") if have_pb else (None, None)
+        # (part, CLI flags, frames it may lose, map it saves)
+        runs = [("kitti", ["--save-map", pb] if pb else [], SHELL_LOST, pb),
+                ("pipelined", ["--pipelined"] + (["--save-map", txt] if txt else []), SHELL_LOST, txt)]
+        if have_pb:
+            runs += [("load .pb", ["--load-map", pb], SHELL_LOST_LOADED, None),
+                     ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
+        else:
+            parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
+            print(f"[12/12] {json.dumps(parts[-1])}", flush=True)
+        if probe["matplotlib"] != "missing":
+            runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
+        else:
+            parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
+            print(f"[12/12] {json.dumps(parts[-1])}", flush=True)
+        for i, (part, args, lost, saves) in enumerate(runs):
+            out = f"{tmp}/k{i}"
+            res = run_cli([*kitti, "--out", out, *args])
+            _check_run(part, res, SHELL_FRAMES, lost, path, out, min_keyframes=2)
+            if part == "kitti":
+                res["layout_write_s"] = layout_s
+            if part == "viewer":
+                pngs = [f for f in os.listdir(f"{tmp}/film") if f.endswith(".png")]
+                big = [f for f in pngs if os.path.getsize(f"{tmp}/film/{f}") > 5000]
+                if len(big) < 2:
+                    raise AssertionError(f"shell viewer: {len(big)} PNGs over 5000 bytes of {len(pngs)}")
+                res["viewer_pngs"] = len(big)
+            if saves:
+                files = [saves + f for f in os.listdir(saves)] if os.path.isdir(saves) else [saves]
+                res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
+            launches.append(res["launches"])
+            parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
+            print(f"[12/12] {part}: {json.dumps(parts[-1])}", flush=True)
+    return launches, parts
+
+
 def _frame_ms(records, keyframe=None):
     ms = [r["ms"] for r in records[2:]
           if not r.get("profiled") and (keyframe is None or r["keyframe"] == keyframe)]
@@ -953,13 +1200,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/11] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/12] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/11] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/12] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -975,28 +1223,28 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/11] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/12] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/11] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/12] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/11] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/12] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/11] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/12] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/11] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/12] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -1004,15 +1252,15 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/11] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/12] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/11] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/12] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     _, loop_launches, loop = run_loop(base)
-    print(f"[9/11] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/12] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -1032,7 +1280,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/11] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/12] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -1043,7 +1291,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/11] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/12] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -1052,23 +1300,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/11] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/12] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/11] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/12] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/11] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/12] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/11")
-    print(f"[11/11] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/12")
+    print(f"[11/12] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -1079,15 +1327,26 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/11] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/11] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/12] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/12] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
+    probe = probe_shell()
+    print(f"[12/12] probe: {json.dumps(probe)}", flush=True)
+    shell_launches, shell = run_shell(base, probe)
+    ran = [p for p in shell if p["ran"]]
+    summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
+                                                  "save_ms", "load_ms", "saved_bytes", "decoded")}
+               for p in ran}
+    print(f"[12/12] shell: {len(ran)} parts passed, not run: "
+          f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
+          flush=True)
+
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
-                     blackout_launches)
+                     blackout_launches, *shell_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by
@@ -1113,6 +1372,7 @@ def main() -> int:
          "bound_by": k2_by, "library_ms": k2_lib, "bound_us": k2_bound * 1e3,
          "share": k2_bound / k2_ms},
     ]
+    print(f"[done] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -106,7 +106,8 @@ def jax_frontend_out(frame_pair):
 
 def test_import_leaves_jax_out():
     """Importing the port, every module of it, never imports JAX or the JAX
-    package (directly, transitively or lazily at import)."""
+    package (directly, transitively or lazily at import), nor the shell's
+    optional libraries (rclpy, matplotlib, Pillow)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orb_slam2_ros2_tpu_torch as p\n"
@@ -115,12 +116,16 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(name)\n"
         "want = ['bow.vocabulary', 'bow.keyframe_db', 'geometry.align', 'geometry.sim3',\n"
         "        'solvers.epnp', 'solvers.sim3_solver', 'io.persistence', 'pipeline.loop_closing',\n"
-        "        'solvers.pose_graph', 'solvers.pcg_ba', 'solvers.global_ba']\n"
+        "        'solvers.pose_graph', 'solvers.pcg_ba', 'solvers.global_ba', 'cli', 'io.datasets',\n"
+        "        'io.native_loader', 'io.proto_map', 'io.txt_map', 'proto', 'viewer', 'viz',\n"
+        "        'ros2_bridge']\n"
         "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'orb_slam2_ros2_tpu.'))"
         " or n == 'orb_slam2_ros2_tpu']\n"
         "assert not bad, bad\n"
+        "optional = [n for n in sys.modules if n.split('.')[0] in ('rclpy', 'matplotlib', 'PIL')]\n"
+        "assert not optional, optional\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -19,7 +19,8 @@ vocabulary.  On that file:
   ``max_frames`` frames after the relocalization;
 * the port's own ``save`` is read back by the JAX ``load_map`` with every
   field equal to what the JAX system saved;
-* protobuf and directory map paths raise ``NotImplementedError``; the
+* the port writes the JAX package's protobuf and txt files of that map,
+  byte for byte, and relocalizes in the map it loads back from them; the
   ``LoopCloser`` methods and loop closing with mapping, which raised before
   the loop-closing slice, now run.
 """
@@ -176,12 +177,36 @@ def test_port_save_is_loaded_by_jax(built, tmp_path):
 
 
 def test_other_formats_and_missing_files_raise(built, tmp_path):
+    """The reference formats of the JAX mapping map: the port writes the
+    JAX package's ``.pb`` bytes and txt files, with and without the
+    vocabulary, and a fresh port ``SLAM`` relocalizes in the map it loads
+    back from either; only a missing map raises."""
+    from orb_slam2_ros2_tpu.io import proto_map as jpm
+    from orb_slam2_ros2_tpu.io import txt_map as jtm
+    from orb_slam2_ros2_tpu_torch.io import proto_map as tpm
+
     slam = load_port(built)
-    for path in (str(tmp_path / "m.pb"), str(tmp_path) + "/", str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="persistence"):
-            slam.save(path)
-        with pytest.raises(NotImplementedError, match="persistence"):
-            slam.load(path)
+    jmap, _ = jpers.load_map(built["path"] + ".map.npz")
+    jv = jvoc.load_vocabulary(built["path"] + ".vocab.npz")
+    jc = reloc_cfg(jcfg, only_tracking=True)
+    pb, txt = str(tmp_path / "m.pb"), str(tmp_path) + "/txt/"
+    slam.save(pb)
+    slam.save(txt)
+    jpm.save_proto_map(str(tmp_path / "j.pb"), jmap, jc, vocab=jv)
+    jtm.save_txt_map(str(tmp_path / "jtxt"), jmap, jc, vocab=jv)
+    assert (tmp_path / "m.pb").read_bytes() == (tmp_path / "j.pb").read_bytes()
+    for name in ("KeyFrames.txt", "MapPoints.txt"):
+        assert (tmp_path / "txt" / name).read_bytes() == (tmp_path / "jtxt" / name).read_bytes()
+    tpm.save_proto_map(str(tmp_path / "bare.pb"), slam.map, slam.cfg)
+    jpm.save_proto_map(str(tmp_path / "jbare.pb"), jmap, jc)
+    assert (tmp_path / "bare.pb").read_bytes() == (tmp_path / "jbare.pb").read_bytes()
+    for path in (pb, txt, str(tmp_path / "txt")):
+        fresh = tsys.SLAM(reloc_cfg(tcfg, only_tracking=True), enable_loop_closing=False, device="cpu")
+        fresh.load(path)
+        assert fresh.n_keyframes == slam.n_keyframes and fresh.n_mappoints == slam.n_mappoints
+        assert fresh.loop_closer is not None and fresh.loop_closer.db is not None
+    pose, stats = fresh.track(*built["frames"][RELOC_FRAME][:2])
+    assert pose is not None and stats.get("relocalized"), stats
     with pytest.raises(FileNotOpenError):
         slam.load(str(tmp_path / "nothing"))
     # a map saved without a vocabulary loads without a database
