@@ -113,7 +113,29 @@ Phases (one line each; any failure raises and exits non-zero):
      map save or load, the CUDA-event spans of its keyframe programs and
      loop stages, and its calls' ms grouped by the programs and stages each
      ran.  A part whose library the probe found missing prints
-     ``"ran": false`` and why, and is not run; no ``--config`` is passed.
+     ``"ran": false`` and why, and is not run; no ``--config`` is passed;
+ 13. multi-device on the one card (it has one GPU: two shards or two roles
+     share it, which measures the cost of the sharding, not scaling):
+     a. ``entry.dryrun_multichip(2, devices=["cuda:0", "cuda:0"])`` — the
+        landmark-sharded GBA at C=256, P=25,000, O=4 and the edge-sharded
+        essential-graph PCG at K=512, each within the CPU tests'
+        tolerances of its one-shard solve (cameras 1e-4 m / 1e-3°, points
+        1 mm + 2e-4, gates within 2, pose graph 2e-3), their ms as CUDA
+        events with the peak device memory, and the split tracking 12
+        frames at 320×192;
+     b. phase 9's loop world with ``dist.n_devices=2`` over those two
+        slots: phase 9's gates, sharded essential-graph steps and sharded
+        GBA chunks counted, keyframes within ±3 of phase 9's, the
+        ``optimize_essential`` and ``gba_chunk`` spans beside phase 9's;
+     c. the tracker/mapper split over phase 6's world: phase 6's gates,
+        every frame ``OK``, each kernel once a frame (the tracker program
+        replayed as a graph on the tracker device, call 5 traced), the
+        largest pose difference from phase 6's graph run within 5e-4,
+        frame ms and the keyframe-program and ``bookkeep`` spans;
+     d. two processes on ``cuda:0`` joined over gloo through the
+        ``SLAM_*`` variables (``entry.run_ranks``), one shard each of part
+        a's problems: each rank's result against the one-process 2-shard
+        mesh's (bit-equality printed; the CPU tests' tolerances gated).
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -209,6 +231,12 @@ SHELL_LOST = 2           # ... a kitti run (tests/test_cli_e2e.py:146)
 SHELL_LOST_LOADED = 4    # ... a run on a loaded map (tests/test_cli_e2e.py:211)
 SHELL_PROFILED_CALL = 10  # the traced call of each CLI run: a replay after the
 #                          loop programs' warm-up (call 5 or 6 of a mapping run)
+# multi-device phase: two mesh slots, or the tracker's and the map's device,
+# on the one card
+MULTI_DEVICES = ["cuda:0", "cuda:0"]
+SPLIT_POSE_ATOL = 5e-4   # tests/test_split_mode.py:73
+RANKS_TIMEOUT_S = 300.0
+ESSENTIAL_ITERS = 20     # GN steps of the essential graph (LoopCloser.correct)
 
 
 def gpu_line() -> str:
@@ -371,9 +399,15 @@ def _launches() -> dict:
             "replays": _replays["run"]}
 
 
+def _graphs(slam: SLAM):
+    """The SLAM's frame graphs: the fused frame program's, or with the
+    tracker/mapper split the tracker program's; None on the eager path."""
+    return slam._frame_graphs if slam._frame_graphs is not None else slam._track_graphs
+
+
 def _graph_counts(slam: SLAM) -> tuple:
     """(replays, captures) of the SLAM's frame graphs; (0, 0) on the eager path."""
-    g = slam._frame_graphs
+    g = _graphs(slam)
     return (0, 0) if g is None else (g.replays, g.captures)
 
 
@@ -419,7 +453,7 @@ def _captures(slam: SLAM) -> int:
     """The SLAM's frame-graph captures, after checking that no graph was
     captured twice: the phases keep their map's capacities, so a graph is
     captured at the first use of its threshold and image shapes only."""
-    log = slam._frame_graphs.capture_log
+    log = _graphs(slam).capture_log
     if len(set(log)) != len(log):
         raise AssertionError(f"a frame graph was captured again without a capacity change: {log}")
     return len(log)
@@ -447,7 +481,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/12] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/13] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -461,20 +495,22 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/12"):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/13", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
-    program launched op by op) or "pipelined" (``tracking.pipelined`` on
-    the graph).  Returns (per-frame records, launch counts of the main-path
-    run, summary, the SLAM, the frames)."""
+    program launched op by op), "pipelined" (``tracking.pipelined`` on
+    the graph) or "split" (``cfg`` holds the tracker/mapper split over
+    ``devices``: the tracker program replayed as a graph, the bookkeeping on
+    the map's device).  Returns (per-frame records, launch counts of the
+    main-path run, summary, the SLAM, the frames)."""
     ds = SyntheticStereoDataset(cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
                                 box_scale=2.5, sky=True, device="cuda")
     frames = [ds.frame(i) for i in range(MAP_FRAMES)]  # rendered on the card, set-up
     gt_twc = {i: g for i, (_, _, g) in enumerate(frames)}
     if mode == "pipelined":
         cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=True))
-    slam = SLAM(cfg, enable_loop_closing=False, device="cuda")
+    slam = SLAM(cfg, enable_loop_closing=False, device="cuda", devices=devices)
     if mode == "eager":
         slam._frame_graphs = None
     slam.time_programs = True
@@ -525,8 +561,8 @@ def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/12"):
         spans.setdefault(name, []).append(start.elapsed_time(end))
     summary = dict(
         mode=mode, wall_s_from_call_6=window_s,
-        frame_graph_captures=_captures(slam) if slam._frame_graphs else 0,
-        capture_log=slam._frame_graphs.capture_log if slam._frame_graphs else [],
+        frame_graph_captures=_captures(slam) if _graphs(slam) else 0,
+        capture_log=_graphs(slam).capture_log if _graphs(slam) else [],
         map_copy_bytes=slam.map_copy_bytes,
         new_keyframes=new_kfs, local_ba_runs=local_ba.local_ba_runs,
         n_keyframes=slam.n_keyframes, n_mappoints=slam.n_mappoints,
@@ -588,7 +624,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/12] {json.dumps(rec)}", flush=True)
+        print(f"[7/13] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -657,7 +693,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/12] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/13] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -682,7 +718,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/12"):
+def run_loop(cfg: SLAMConfig, tag: str = "9/13", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -697,7 +733,7 @@ def run_loop(cfg: SLAMConfig, tag: str = "9/12"):
     ds = SyntheticStereoDataset(cfg.camera, n_frames=LOOP_FRAMES, circle=True, box_scale=2.5,
                                 device="cuda")
     frames = [ds.frame(i) for i in range(LOOP_FRAMES)]  # rendered on the card, set-up
-    slam = SLAM(cfg, device="cuda")
+    slam = SLAM(cfg, device="cuda", devices=devices)
     slam.time_programs = True
     slam.loop_sync_debug_mode = "warn"
     torch.cuda.synchronize()
@@ -908,8 +944,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/12")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/12")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/13")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/13")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1145,7 +1181,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/12] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/13] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1163,12 +1199,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/12] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/13] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/12] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/13] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1186,8 +1222,118 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/12] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/13] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
+
+
+# ------------------------------------------------------------ multi-device --
+
+class _Spy:
+    """Counts the calls of ``module.name`` that ``pred(*args, **kw)`` picks,
+    while it is active."""
+
+    def __init__(self, module, name, pred):
+        self.module, self.name, self.pred, self.calls = module, name, pred, 0
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            self.calls += bool(self.pred(*a, **kw))
+            return self.orig(*a, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summary: dict, map_poses: list):
+    """Phase 13 on the one card: (a) the dry run's sharded GBA and essential
+    graph against their one-shard solves; (b) phase 9's loop world over a
+    two-shard mesh; (c) the tracker/mapper split over phase 6's mapping
+    world; (d) two processes joined over gloo solving part a's problems.
+    Returns (launch counts of parts b and c, summary)."""
+    from orb_slam2_ros2_tpu_torch import entry
+    from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
+    from orb_slam2_ros2_tpu_torch.solvers import global_ba as gba_mod
+    from orb_slam2_ros2_tpu_torch.solvers import pose_graph as pg_mod
+
+    out = {}
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(2, devices=MULTI_DEVICES)
+    bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
+                                    ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
+           if not dry[k] <= lim}
+    print(f"[13/13] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if bad:
+        raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
+    out["a"] = dry
+
+    t0 = time.perf_counter()
+    mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
+    with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/13", devices=MULTI_DEVICES)
+    spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
+             for k in ("optimize_essential", "gba_chunk")}
+    b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
+             n_keyframes=lp["n_keyframes"], phase9_keyframes=loop["n_keyframes"],
+             ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
+             median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
+             peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
+    print(f"[13/13] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
+    # closure 20 steps and every chunk of the background solve
+    want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
+    if pcg.calls < want[0] or chunks.calls < want[1]:
+        raise AssertionError(f"the loop world ran {pcg.calls} sharded essential-graph steps and "
+                             f"{chunks.calls} sharded GBA chunks, fewer than {want}")
+    if abs(lp["n_keyframes"] - loop["n_keyframes"]) > 3:
+        raise AssertionError(f"mesh: {lp['n_keyframes']} keyframes, phase 9 {loop['n_keyframes']}")
+    out["b"] = b
+
+    t0 = time.perf_counter()
+    split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/13", devices=MULTI_DEVICES)
+    diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
+    c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
+             frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
+             wall_s_from_call_6=sm["wall_s_from_call_6"], phase6_wall_s_from_call_6=map_summary["wall_s_from_call_6"],
+             phase6_frame_ms_keyframe=map_summary["frame_ms_keyframe"],
+             phase6_frame_ms_other=map_summary["frame_ms_other"],
+             new_keyframes=sm["new_keyframes"], phase6_new_keyframes=map_summary["new_keyframes"],
+             ate_live_m=sm["ate_live_m"], ate_final_m=sm["ate_final_m"],
+             spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
+             map_device=str(slam.map_device), tracker_device=str(slam.device),
+             seconds=time.perf_counter() - t0)
+    print(f"[13/13] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    if len(slam.trajectory) != MAP_FRAMES:
+        raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
+    if not diff <= SPLIT_POSE_ATOL:
+        raise AssertionError(f"the split's poses left phase 6's by {diff} > {SPLIT_POSE_ATOL}")
+    out["c"] = c
+    del slam
+
+    t0 = time.perf_counter()
+    C, P, K = 256, 25000, 512
+    ref = entry.sharded_solves(ba_mesh(2, devices=MULTI_DEVICES), C, P, K, "cuda:0")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = entry.run_ranks(2, "cuda:0", C, P, K, tmp, timeout=RANKS_TIMEOUT_S)
+    d = {"seconds": time.perf_counter() - t0, "ranks": []}
+    for rank, res in enumerate(ranks):
+        row = {name: dict(bit_equal=bool(torch.equal(res[name], want)),
+                          max_abs=float((res[name].float() - want.float()).abs().max()))
+               for name, want in ref.items()}
+        d["ranks"].append(row)
+        bad = {k: v for k, v in row.items() if v["max_abs"] > (2 if k == "gate" else
+                                                              2e-3 if k == "pg_T" else 1e-4)}
+        if bad:
+            raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
+    print(f"[13/13] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+          flush=True)
+    out["d"] = d
+    return (loop_launches, split_launches), out
 
 
 def _frame_ms(records, keyframe=None):
@@ -1202,12 +1348,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/12] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/13] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/12] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/13] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -1223,28 +1369,30 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/12] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/13] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/12] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/13] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/12] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/13] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/12] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/13] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
 
+    map_poses = [p for _, p in map_slam.trajectory]
+    map_summary.update(frame_ms_keyframe=_frame_ms(map_records, True), frame_ms_other=_frame_ms(map_records, False))
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/12] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/13] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -1252,15 +1400,15 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/12] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/13] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/12] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/13] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     _, loop_launches, loop = run_loop(base)
-    print(f"[9/12] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/13] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -1280,7 +1428,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/12] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/13] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -1291,7 +1439,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/12] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/13] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -1300,23 +1448,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/12] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/13] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/12] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/13] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/12] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/13] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/12")
-    print(f"[11/12] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/13")
+    print(f"[11/13] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -1327,26 +1475,28 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/12] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/12] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/13] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/13] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/12] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/13] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/12] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/13] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
+    multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
+
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
-                     blackout_launches, *shell_launches)
+                     blackout_launches, *shell_launches, *multi_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

@@ -3,9 +3,12 @@
 The JAX package is the reference this package is held against; this one runs
 stereo and RGB-D SLAM — tracking (synchronous or pipelined, the frame program
 replayed as a CUDA graph), keyframe mapping with local BA, loop closing, map
-save/load and relocalization in a saved map — on an NVIDIA GPU, with the two
-TPU kernels of that path replaced by CUDA C++ kernels written for Hopper
-(``csrc/``).  ``entry.entry()`` returns the frame program and example inputs.
+save/load and relocalization in a saved map, and multi-device operation (the
+solvers sharded over a device mesh, the tracker/mapper split, several
+processes; ``parallel/``) — on NVIDIA GPUs, with the two TPU kernels of that
+path replaced by CUDA C++ kernels written for Hopper (``csrc/``).
+``entry.entry()`` returns the frame program and example inputs,
+``entry.dryrun_multichip`` runs the multi-device paths.
 It imports torch and numpy only — never JAX.
 """
 

@@ -15,8 +15,10 @@ image on the host (``io/datasets.py``) and ``track`` copies it to the device;
 ``synth`` renders on the device.  The JAX CLI's persistent XLA compile cache
 has no counterpart: the CUDA kernels are compiled once into ``build/`` at
 the repository root and reused from there.  ``--trace DIR`` writes a
-``torch.profiler`` Chrome trace to ``DIR/trace.json``.  Multi-GPU
-(``--distributed``, ``--ba-devices`` > 1) is not ported yet.
+``torch.profiler`` Chrome trace to ``DIR/trace.json``.  ``--distributed``
+joins a multi-process run through the ``SLAM_*`` variables
+(``parallel.mesh.init_distributed``); ``--ba-devices N`` shards the
+essential graph and the global BA over N devices.
 """
 
 from __future__ import annotations
@@ -43,14 +45,14 @@ def _build_cfg(args, width: int, height: int) -> SLAMConfig:
         cfg = cfg.replace(camera=dataclasses.replace(cam, width=width, height=height))
     if args.pipelined:
         cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=True))
-    return cfg
-
-
-def _refuse_multi_gpu(args) -> None:
     if args.distributed:
-        raise NotImplementedError("--distributed is not ported yet (ROADMAP port queue: multi-GPU)")
+        from .parallel.mesh import init_distributed
+
+        pid = init_distributed()
+        print(f"[distributed] process {pid}", file=sys.stderr)
     if args.ba_devices > 1:
-        raise NotImplementedError("--ba-devices > 1 is not ported yet (ROADMAP port queue: multi-GPU)")
+        cfg = cfg.replace(dist=type(cfg.dist)(n_devices=args.ba_devices, mesh_axis=cfg.dist.mesh_axis))
+    return cfg
 
 
 def _align_pipelined(slam, poses, n):
@@ -250,9 +252,10 @@ def main(argv=None):
         q.add_argument("--trace", default="",
                        help="write a torch.profiler Chrome trace of the run to DIR/trace.json")
         q.add_argument("--distributed", action="store_true",
-                       help="multi-process run (not ported yet: raises)")
+                       help="join a multi-process run (SLAM_COORDINATOR, SLAM_NUM_PROCESSES, "
+                            "SLAM_PROCESS_ID)")
         q.add_argument("--ba-devices", type=int, default=0,
-                       help="shard global BA over N devices (N > 1 not ported yet: raises)")
+                       help="shard the essential graph and the global BA over N devices")
         q.add_argument("--pipelined", action="store_true",
                        help="pipelined tracking (deployment mode): overlap "
                             "the per-frame host fetch with the next frame's "
@@ -277,7 +280,6 @@ def main(argv=None):
     if args.cmd == "train-vocab":
         _train_vocab(args)
         return
-    _refuse_multi_gpu(args)
     with _tracing(args.trace, args.device):
         out = _run_sequence(args)
     print(json.dumps(out))

@@ -96,17 +96,19 @@ class _Captured(NamedTuple):
     inputs: tuple             # static (img_l, img_r, last, velocity, local)
     in_leaves: list
     ref_kf: torch.Tensor      # static int32 [1]
-    outputs: Optional[tuple]  # static (new_state, velocity, host_vec, local)
+    outputs: Optional[tuple]  # the program's static outputs
     map_ptrs: tuple           # the map storage the graph reads
 
 
 class FrameGraphs:
-    """The frame program captured per (``proj_th``, image signatures).
+    """A frame program captured per (``proj_th``, image signatures).
 
     ``program(img_l, img_r, last, velocity, local, mapstate, ref_kf, *,
-    proj_th)`` is ``SLAM.frame_program``; ``run`` takes the same arguments
-    (``ref_kf`` a host int) and returns ``(new_state, velocity, host_vec,
-    local)``, tensors the caller owns."""
+    proj_th)`` returns a tuple of tensors (``SLAM.frame_program`` without
+    its map, or the split's tracker program, whose ``mapstate`` is the
+    published map view); ``mapstate`` is storage at fixed addresses.
+    ``run`` takes the same arguments (``ref_kf`` a host int) and returns
+    the program's outputs, tensors the caller owns."""
 
     def __init__(self, program: Callable, *, capture: bool = True):
         self.program = program
@@ -137,9 +139,7 @@ class FrameGraphs:
             g.graph.replay()
             outputs = g.outputs
         else:
-            new_state, vel, host_vec, _, local2 = self.program(*g.inputs, mapstate, g.ref_kf,
-                                                               proj_th=proj_th)
-            outputs = (new_state, vel, host_vec, local2)
+            outputs = self.program(*g.inputs, mapstate, g.ref_kf, proj_th=proj_th)
         self.replays += 1
         return tree_map(torch.clone, outputs)
 
@@ -159,17 +159,15 @@ class FrameGraphs:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            new_state, vel, host_vec, _, local2 = self.program(*statics, mapstate, ref, proj_th=proj_th)
+            result = self.program(*statics, mapstate, ref, proj_th=proj_th)
         main.wait_stream(side)
-        result = (new_state, vel, host_vec, local2)
         for t in tree_leaves(result):
             t.record_stream(main)
 
         graph = torch.cuda.CUDAGraph()
         with _capturing(), torch.cuda.graph(graph):
-            new_state, vel, host_vec, _, local2 = self.program(*statics, mapstate, ref, proj_th=proj_th)
-        self._graphs[key] = _Captured(graph, statics, tree_leaves(statics), ref,
-                                      (new_state, vel, host_vec, local2), map_ptrs)
+            outputs = self.program(*statics, mapstate, ref, proj_th=proj_th)
+        self._graphs[key] = _Captured(graph, statics, tree_leaves(statics), ref, outputs, map_ptrs)
         return result
 
 

@@ -19,8 +19,8 @@ src/LoopClosing.cc, src/KeyFrameDB.cc):
 Every stage takes host ints for keyframe ids and never writes into the map
 it is given.  A stage's results stay on the device; its few gate counts go
 to a pinned host buffer behind a CUDA event and are read on a later frame.
-The mesh-sharded essential graph and global BA wait for the multi-GPU item
-of the port queue.
+With a device ``mesh`` (``parallel/mesh.py``) ``correct`` shards the
+essential graph's edges and the synchronous global BA's points over it.
 """
 
 from __future__ import annotations
@@ -722,19 +722,20 @@ class LoopCloser:
         return kf_cur, kf_cand, p["S12"], p["matched_mp"], p["group"]
 
     # ------------------------------------------------------------------
-    def warmup(self, state: MapState, cam: CameraParams) -> None:
-        """Run detection, the three stages and the correction once on
-        keyframe 0 against itself and discard the result, so that the first
-        real attempt pays no one-off library load or allocation mid-run.
-        The map is not written (no stage writes into its input); keyframe 0
-        is registered in the database, as the JAX warm-up does."""
+    def warmup(self, state: MapState, cam: CameraParams, mesh=None) -> None:
+        """Run detection, the three stages and the correction (over ``mesh``
+        when given) once on keyframe 0 against itself and discard the
+        result, so that the first real attempt pays no one-off library load
+        or allocation mid-run.  The map is not written (no stage writes into
+        its input); keyframe 0 is registered in the database, as the JAX
+        warm-up does."""
         self.add_and_detect(state, 0)
         S12, ok, bj, _ = self.stage_a(state, cam, 0, 0, self._generator(0))
         S12, matched_mp, _ = self.stage_b(state, cam, 0, 0, S12, ok, bj)
         matched_mp, group, _ = self.stage_c(state, cam, 0, 0, S12, matched_mp)
         saved = (self.last_loop_kf, self.consistent_groups)
         self.correct(state, cam, 0, 0, sim3.identity(device=state.kf_Tcw.device), matched_mp, group,
-                     run_gba=False)
+                     run_gba=False, mesh=mesh)
         self.last_loop_kf, self.consistent_groups = saved
 
     def correct(
@@ -754,10 +755,8 @@ class LoopCloser:
         propagation, matched-point fuse, loop-group fuse into the current
         keyframe's top-16 covisible neighbours (one read of its covisibility
         row), essential-graph optimization, and the synchronous global BA
-        when ``run_gba``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded essential graph is not ported yet (ROADMAP port queue: multi-GPU)")
+        when ``run_gba``; with a ``mesh`` the essential graph takes the
+        edge-sharded PCG and the global BA the sharded solve."""
         mw = self.cfg.mapping.min_covis_weight
         pre_conn = state.covis > 0
         with self.span("correct_group"):
@@ -772,12 +771,13 @@ class LoopCloser:
             state = optimize_essential(
                 state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn,
                 essential_weight=self.cfg.loop.essential_graph_weight,
-                pose_graph_fn=partial(optimize_pose_graph, iters=20),
+                pose_graph_fn=partial(optimize_pose_graph, iters=20, mesh=mesh,
+                                      mesh_axis=self.cfg.dist.mesh_axis),
             )
         if run_gba:
             state = global_ba(state, cam, scale_factor=self.cfg.orb.scale_factor,
                               phase_iters=tuple(self.cfg.loop.global_ba_phase_iters),
-                              pcg_iters=self.cfg.ba.pcg_iters)
+                              pcg_iters=self.cfg.ba.pcg_iters, mesh=mesh, axis=self.cfg.dist.mesh_axis)
         self.last_loop_kf = kf_cur
         self.consistent_groups = []
         return state

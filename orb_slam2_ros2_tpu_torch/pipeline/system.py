@@ -43,9 +43,15 @@ pose-only LM → two projection augmentation rounds, ``reloc_all_candidates``
 ``load`` handle the npz map format and the reference's protobuf and txt
 formats.
 
-Not ported yet, and refused by ``SLAM.__init__``: the tracker/mapper split
-and multi-device BA (with them the mesh-sharded essential graph and global
-BA).
+Multi-device operation (``cfg.dist``): with ``n_devices > 1`` the essential
+graph and the global BA shard over a device mesh (``parallel/mesh.py``);
+with ``tracker_mapper_split`` the tracker device runs the frontend and the
+tracking step against a published view of the map (``mp_pos``, ``mp_valid``
+and the local map), and the map device owns the map and runs the per-frame
+bookkeeping, the keyframe programs, loop closing and the GBA (the
+reference's tracking / mapping thread split, System.cc:119-129, as a device
+split).  The view is refreshed after each mapping event; the split turns
+the pipelined loop off.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ from ..mapstate.local_map import (
     local_map_snapshot_frame,
 )
 from ..mapstate.map_state import MapState, empty_map, grow_map, insert_keyframe, kf_index
+from ..parallel.mesh import ba_mesh, local_devices
 from ..mapstate.mapping import (
     cull_keyframes,
     cull_mappoints,
@@ -92,7 +99,7 @@ from ..solvers.global_ba import commit_global_ba, global_ba, start_global_ba, st
 from ..solvers.local_ba import local_ba
 from ..solvers.pose_opt import PoseObs, optimize_pose
 from ..utils import count_into, mask_from_ids, mask_from_ids_rows, set_drop, set_drop_rows
-from .frame_graph import FrameGraphs, PinnedRing
+from .frame_graph import FrameGraphs, PinnedRing, tree_map
 from .loop_closing import HostCopy, LoopCloser
 from .tracking import TrackState
 
@@ -124,6 +131,23 @@ def _rigid_inv(T: np.ndarray) -> np.ndarray:
     out[:3, :3] = T[:3, :3].T
     out[:3, 3] = -T[:3, :3].T @ T[:3, 3]
     return out
+
+
+def _indexed(device) -> torch.device:
+    """A CUDA device with its index: a tensor on the card names it (cuda:0),
+    so an image already there compares equal to the SLAM's device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _join_stats(hv0: torch.Tensor, hv1: torch.Tensor) -> torch.Tensor:
+    """The frame's stats vector from the tracker's [7 counts, Tcw(16)] and
+    the map's [best_ref, next_mp, n_ref, Tcw_refkf(16)]: [STAT_KEYS...,
+    Tcw.flat(16), Tcw_refkf.flat(16)]."""
+    n_stat = hv0.shape[0] - 16
+    return torch.cat([hv0[:n_stat], hv1[:3], hv0[n_stat:], hv1[3:]])
 
 
 def _octave_inv_sigma2(octave: torch.Tensor, scale_factor: float) -> torch.Tensor:
@@ -490,24 +514,39 @@ class SLAM:
     per frame (reference System::EstimatePose, System.h:55-61), ``flush()``
     at the end of the sequence; ``save(path)`` / ``load(path)`` keep the map
     (npz, or the reference's ``.pb`` and txt formats), and a loaded map is
-    localized in by relocalization."""
+    localized in by relocalization.
+
+    ``device`` runs everything; with ``cfg.dist.n_devices > 1`` the loop
+    closer's essential graph and the GBA shard over ``self.mesh``, the first
+    ``n_devices`` of ``devices`` (default: every visible CUDA device, or the
+    CPU); with ``cfg.dist.tracker_mapper_split`` the first two of
+    ``devices`` are the tracker's (``self.device``) and the map's
+    (``self.map_device``), and ``device`` is not used."""
 
     def __init__(self, cfg: SLAMConfig, rgbd: bool = False,
-                 enable_loop_closing: bool = True, *, device="cuda"):
-        if cfg.dist.tracker_mapper_split:
-            raise NotImplementedError("dist.tracker_mapper_split is not ported yet (ROADMAP port queue: multi-GPU)")
-        if cfg.dist.n_devices > 1:
-            raise NotImplementedError("dist.n_devices > 1 is not ported yet (ROADMAP port queue: multi-GPU)")
+                 enable_loop_closing: bool = True, *, device="cuda", devices=None):
         self.cfg = cfg
         # localization mode never closes loops
         self.enable_loop_closing = enable_loop_closing and not cfg.tracking.only_tracking
         self.rgbd = rgbd
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            # a tensor on the card names its index (cuda:0): so must the SLAM's
-            # device, or an image already there would not compare equal to it
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        # the sharded essential graph and GBA (SURVEY §5.8); one device pays
+        # no collective
+        self.mesh = (ba_mesh(cfg.dist.n_devices, axis=cfg.dist.mesh_axis, devices=devices)
+                     if cfg.dist.n_devices > 1 else None)
+        self._split = bool(cfg.dist.tracker_mapper_split)
+        map_device = device
+        if self._split:
+            devs = local_devices(devices)
+            if len(devs) < 2:
+                raise ValueError(f"dist.tracker_mapper_split needs ≥2 devices, have {len(devs)}")
+            if self.mesh is not None:
+                raise ValueError("tracker_mapper_split and a BA mesh are mutually exclusive")
+            device, map_device = devs[0], devs[1]
+        self.device, self.map_device = _indexed(device), _indexed(map_device)
         self.cam = CameraParams.from_config(cfg.camera, self.device)
+        # the map side's copy (the same object without the split)
+        self.map_cam = (self.cam if self.map_device == self.device
+                        else CameraParams.from_config(cfg.camera, self.map_device))
         # built on the first keyframe registration, by load() or by
         # _ensure_loop_closer(): the vocabulary, the keyframe database and
         # the loop-closing state
@@ -540,15 +579,26 @@ class SLAM:
         )
         # the map lives in storage that outlasts the programs (``map``): a
         # captured frame graph reads it at fixed addresses
-        self._map = empty_map(cfg, self.device)
+        self._map = empty_map(cfg, self.map_device)
         self.map_copy_bytes = 0
         # the frame program as CUDA graphs on a CUDA device (None: the eager
         # program, the CPU path); pinned buffers for images and stats
         # (through a weak reference: the SLAM and its graphs are freed when
-        # its last reference goes, not by a garbage collection at any time)
+        # its last reference goes, not by a garbage collection at any time).
+        # With the split the tracker program is the graph, on the tracker
+        # device, and it reads the published view as its map storage
         this = weakref.ref(self)
-        self._frame_graphs = (FrameGraphs(lambda *a, **kw: this().frame_program(*a, **kw))
-                              if self.device.type == "cuda" else None)
+        on_card = self.device.type == "cuda"
+        self._frame_graphs = (FrameGraphs(lambda *a, **kw: this()._graph_frame_program(*a, **kw))
+                              if on_card and not self._split else None)
+        self._track_graphs = (FrameGraphs(lambda *a, **kw: this().track_program(*a, **kw))
+                              if on_card and self._split else None)
+        # the split's published view: (mp_pos, mp_valid) on the tracker
+        # device, and the local map on the map device
+        self._view: Optional[tuple] = None
+        self._local_map: Optional[LocalMap] = None
+        if self._split:
+            self._refresh_view()
         self._pinned = PinnedRing(self.device) if self.device.type == "cuda" else None
         self.state = TrackState.NOT_IMAGE_YET
         self.last: Optional[SlamFrame] = None
@@ -595,7 +645,7 @@ class SLAM:
         self.loop_sync_debug_mode: Optional[str] = None
         # pipelined tracking (tracking.pipelined): the dispatched frame not
         # resolved yet, and a relocalization result surfaced on the next call
-        self._pipelined = bool(cfg.tracking.pipelined)
+        self._pipelined = bool(cfg.tracking.pipelined) and not self._split
         self._inflight: Optional[_Inflight] = None
         self._pipeline_carry: Optional[tuple] = None
 
@@ -610,15 +660,17 @@ class SLAM:
         changed fields are copied into the storage the frame graphs read
         (``map_copy_bytes`` counts them), so a keyframe needs no new capture.
         A map of other shapes (a capacity change, a loaded map) becomes the
-        storage, as a copy of its own, and the frame graphs are dropped."""
+        storage, as a copy of its own, and the frame graphs are dropped (the
+        split's tracker graphs too: the local map they take changes shape)."""
         cur = self._map
         if new is cur:
             return
         if any(a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
                for a, b in zip(cur, new)):
             self._map = MapState(*(t.clone() for t in new))
-            if self._frame_graphs is not None:
-                self._frame_graphs.clear()
+            for graphs in (self._frame_graphs, self._track_graphs):
+                if graphs is not None:
+                    graphs.clear()
             return
         dst, src = [], []
         for a, b in zip(cur, new):
@@ -639,21 +691,37 @@ class SLAM:
         ``ref_kf`` is the reference keyframe as an int [1] device tensor (a
         host int is taken too).  Returns (new_state, velocity, host_vec,
         mapstate, local)."""
-        t = self.cfg.tracking
+        new_state, velocity2, hv0, visible, found = self.track_program(
+            img_l, img_r, last, velocity, local, (mapstate.mp_pos, mapstate.mp_valid), proj_th=proj_th)
+        mapstate, hv1, local2 = self.bookkeep_program(mapstate, local, new_state.mp_ids, visible, found,
+                                                      ref_kf)
+        return new_state, velocity2, _join_stats(hv0, hv1), mapstate, local2
+
+    def _graph_frame_program(self, *args, **kw):
+        """``frame_program`` without its map: the program a frame graph
+        replays (the map is the storage it reads and bumps)."""
+        new_state, velocity, host_vec, _, local = self.frame_program(*args, **kw)
+        return new_state, velocity, host_vec, local
+
+    def track_program(self, img_l, img_r, last: SlamFrame, velocity, local: LocalMap, view,
+                      ref_kf=None, *, proj_th: float = 3.0):
+        """The tracker's part of the frame: frontend + tracking against
+        ``view`` = (mp_pos, mp_valid).  Returns (new_state, velocity, stats
+        and pose [23], visible, found); ``ref_kf`` is not read."""
         cur = self._frontend(img_l, img_r, self.cam)
-        new_state, velocity2, host_vec, visible, found = slam_track_step(
-            self.cam, cur, last, velocity, local, mapstate.mp_pos, mapstate.mp_valid,
-            proj_th=proj_th, **self._track_common,
-        )
+        return slam_track_step(self.cam, cur, last, velocity, local, view[0], view[1],
+                               proj_th=proj_th, **self._track_common)
+
+    def bookkeep_program(self, mapstate: MapState, local: LocalMap, mp_ids, visible, found, ref_kf):
+        """The map's part of the frame (JAX ``_bookkeep_program``): counter
+        bumps (in place), the map-side stats [19] and the frame-centred
+        local map.  Returns (mapstate, stats, local)."""
+        t = self.cfg.tracking
         mapstate = bump_tracking_counters(mapstate, local, visible, found)
-        # layout: [STAT_KEYS..., Tcw.flat(16), Tcw_refkf.flat(16)]
-        bk = _bookkeep_stats(mapstate, new_state.mp_ids, ref_kf, min_obs_bar=t.n_ref_min_obs)
-        n_stat = host_vec.shape[0] - 16
-        host_vec = torch.cat([host_vec[:n_stat], bk[:3], host_vec[n_stat:], bk[3:]])
-        local2 = local_map_snapshot_frame(mapstate, new_state.mp_ids,
-                                          max_kfs=t.max_local_keyframes,
+        hv1 = _bookkeep_stats(mapstate, mp_ids, ref_kf, min_obs_bar=t.n_ref_min_obs)
+        local2 = local_map_snapshot_frame(mapstate, mp_ids, max_kfs=t.max_local_keyframes,
                                           max_mps=t.max_local_mappoints)
-        return new_state, velocity2, host_vec, mapstate, local2
+        return mapstate, hv1, local2
 
     def map_front_program(self, mapstate: MapState, frame: StereoFrame, Tcw, mp_ids,
                           fid: int, kf_id: int):
@@ -665,20 +733,20 @@ class SLAM:
         c, o, t, b, mp = self.cfg.camera, self.cfg.orb, self.cfg.tracking, self.cfg.ba, self.cfg.mapping
         common = dict(scale_factor=o.scale_factor, n_levels=o.n_levels)
         mapstate, _ = insert_keyframe(
-            mapstate, frame, Tcw, mp_ids, fid, self.cam,
+            mapstate, frame, Tcw, mp_ids, fid, self.map_cam,
             depth_threshold=c.baseline * t.th_depth, min_covis_weight=mp.min_covis_weight,
             seed_floor=mp.seed_far_floor, **common,
         )
         mapstate = cull_mappoints(mapstate, kf_id, cull_score=mp.mp_cull_score)
         mapstate = triangulate_new_points(
-            mapstate, kf_id, self.cam, n_neighbors=mp.n_triangulate_kfs, baseline=c.baseline,
+            mapstate, kf_id, self.map_cam, n_neighbors=mp.n_triangulate_kfs, baseline=c.baseline,
             rank_gate=mp.triangulation_rank_gate, chi2_mono=b.chi2_mono,
             chi2_stereo=b.chi2_stereo, **common,
         )
-        mapstate = fuse_into_keyframe(mapstate, kf_id, self.cam, width=c.width, height=c.height, **common)
+        mapstate = fuse_into_keyframe(mapstate, kf_id, self.map_cam, width=c.width, height=c.height, **common)
         if mp.backward_fuse_neighbors > 0:
             mapstate = fuse_keyframe_into_neighbors(
-                mapstate, kf_id, self.cam, width=c.width, height=c.height,
+                mapstate, kf_id, self.map_cam, width=c.width, height=c.height,
                 n_neighbors=mp.backward_fuse_neighbors, allow_merge=mp.backward_fuse_merge, **common,
             )
         local = self._snapshot(mapstate, kf_id)
@@ -690,7 +758,7 @@ class SLAM:
         b, mp = self.cfg.ba, self.cfg.mapping
         if do_ba:
             mapstate = local_ba(
-                mapstate, kf_id, self.cam,
+                mapstate, kf_id, self.map_cam,
                 max_free=b.max_local_ba_kfs, max_fixed=b.max_local_ba_fixed,
                 max_points=b.local_ba_points, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo,
                 lam=b.lm_lambda_init, scale_factor=self.cfg.orb.scale_factor,
@@ -710,6 +778,43 @@ class SLAM:
         return local_map_snapshot(mapstate, kf_id, max_kfs=t.max_local_keyframes,
                                   max_mps=t.max_local_mappoints)
 
+    def _publish_local(self, local: LocalMap, refresh_view: bool = False) -> None:
+        """A local map from the map side becomes the tracker's.  With the
+        split the tracker gets its own copy, and after a mapping event
+        (``refresh_view``: keyframe insertion, the mapping tail, a
+        correction, a GBA commit, anything that moves or culls points) the
+        (mp_pos, mp_valid) view is refreshed too; between those events the
+        tables do not change, so a per-frame refresh would copy the same
+        bytes."""
+        if not self._split:
+            self.local = local
+            return
+        self._local_map = local
+        self.local = tree_map(lambda t: t.to(self.device, copy=True), local)
+        if refresh_view:
+            self._refresh_view()
+
+    def _refresh_view(self) -> None:
+        """Copy (mp_pos, mp_valid) into the tracker's view, in place: a
+        captured tracker graph reads it at fixed addresses.  A view of other
+        shapes (a capacity change) is new storage and drops the graphs."""
+        src = (self.map.mp_pos, self.map.mp_valid)
+        if self._view is not None and all(a.shape == b.shape for a, b in zip(self._view, src)):
+            for a, b in zip(self._view, src):
+                a.copy_(b)
+            return
+        self._view = tuple(t.to(self.device, copy=True) for t in src)
+        if self._track_graphs is not None:
+            self._track_graphs.clear()
+
+    def _to_map(self, x):
+        """Tensors of the tracker on the map device (themselves without the
+        split)."""
+        return tree_map(lambda t: t.to(self.map_device), x)
+
+    def _to_tracker(self, x):
+        return tree_map(lambda t: t.to(self.device), x)
+
     @contextlib.contextmanager
     def _sync_guard(self, mode: Optional[str]):
         if mode is None or self.device.type != "cuda":
@@ -724,9 +829,11 @@ class SLAM:
 
     @contextlib.contextmanager
     def _program(self, name: str, sync_mode: Optional[str]):
-        """Run a program under ``sync_mode``, bracketed by CUDA events when
-        ``time_programs`` is on."""
-        with self._sync_guard(sync_mode):
+        """Run a map-side program under ``sync_mode`` on the map device,
+        bracketed by CUDA events when ``time_programs`` is on."""
+        on_map = (torch.cuda.device(self.map_device) if self.map_device.type == "cuda"
+                  else contextlib.nullcontext())
+        with self._sync_guard(sync_mode), on_map:
             if not (self.time_programs and self.device.type == "cuda"):
                 yield
                 return
@@ -782,6 +889,8 @@ class SLAM:
         a relocalization).  Returns (new_state, velocity, host_vec, local),
         tensors the caller owns."""
         proj_th = 5.0 if wide else 3.0
+        if self._split:
+            return self._run_split_frame(img_l, img_r, last, velocity, local, proj_th)
         with self._sync_guard(self.frame_sync_debug_mode):
             if self._frame_graphs is not None:
                 return self._frame_graphs.run(img_l, img_r, last, velocity, local, self.map,
@@ -790,6 +899,24 @@ class SLAM:
                 img_l, img_r, last, velocity, local, self.map, kf_index(self.ref_kf, self.device),
                 proj_th=proj_th)
         return new_state, velocity, host_vec, local_new
+
+    def _run_split_frame(self, img_l, img_r, last: SlamFrame, velocity, local: LocalMap, proj_th: float):
+        """The split's frame: the tracker program on the tracker device (its
+        graph on CUDA) against the view, then the bookkeeping on the map
+        device with the frame's (mp_ids, visible, found).  Returns what
+        ``_run_frame`` returns, the local map on the map device."""
+        with self._sync_guard(self.frame_sync_debug_mode):
+            if self._track_graphs is not None:
+                new_state, velocity, hv0, visible, found = self._track_graphs.run(
+                    img_l, img_r, last, velocity, local, self._view, 0, proj_th=proj_th)
+            else:
+                new_state, velocity, hv0, visible, found = self.track_program(
+                    img_l, img_r, last, velocity, local, self._view, proj_th=proj_th)
+        with self._keyframe_program("bookkeep"):
+            self.map, hv1, local_map = self.bookkeep_program(
+                self.map, self._local_map, *self._to_map((new_state.mp_ids, visible, found)),
+                kf_index(self.ref_kf, self.map_device))
+        return new_state, velocity, _join_stats(hv0, self._to_tracker(hv1)), local_map
 
     def track(self, img_left, img_right) -> Tuple[Optional[np.ndarray], dict]:
         """Feed one stereo pair, or an image and its depth map in RGB-D mode
@@ -864,7 +991,7 @@ class SLAM:
             best = stats["best_ref_kf"]
             if best >= 0:
                 self.ref_kf = best
-            self.local = local_new
+            self._publish_local(local_new)
 
         if self._need_keyframe(stats):
             self._insert_and_map(new_state, fid, stats)
@@ -1062,20 +1189,21 @@ class SLAM:
         self._init_failures = 0
         o, c = self.cfg.orb, self.cfg.camera
         Tcw = torch.eye(4, dtype=torch.float32, device=self.device)
-        no_mp = torch.full((frame.feats.capacity,), -1, dtype=torch.int32, device=self.device)
+        no_mp = torch.full((frame.feats.capacity,), -1, dtype=torch.int32, device=self.map_device)
         # seeded with insert_keyframe's default floor of 100 nearest far
         # points, as the JAX system's initialization is (mapping.seed_far_floor
         # applies to later keyframes only)
         self.map, kf_id = insert_keyframe(
-            self.map, frame, Tcw, no_mp, fid, self.cam,
+            self.map, self._to_map(frame), self._to_map(Tcw), no_mp, fid, self.map_cam,
             depth_threshold=c.baseline * t.th_depth,
             scale_factor=o.scale_factor, n_levels=o.n_levels,
             min_covis_weight=self.cfg.mapping.min_covis_weight,
         )
         self.ref_kf = int(kf_id)
         self._n_kf = self.ref_kf + 1
-        self.local = self._snapshot(self.map, self.ref_kf)
-        self.last = SlamFrame(frame=frame, Tcw=Tcw, mp_ids=self.map.kf_mp_idx[self.ref_kf].clone())
+        self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
+        self.last = SlamFrame(frame=frame, Tcw=Tcw,
+                              mp_ids=self.map.kf_mp_idx[self.ref_kf].to(self.device, copy=True))
         self.state = TrackState.OK
         self.frames_since_kf = 0
         pose = Tcw.cpu().numpy()
@@ -1095,9 +1223,12 @@ class SLAM:
         last = self.last if last is None else last
         kf = self.ref_kf
         M = self.map.mp_capacity
-        kf_mp_idx = self.map.kf_mp_idx[kf]
-        has_mp = self.map.kf_feat_valid[kf] & (kf_mp_idx >= 0)
-        dist = hamming_matrix(frame.feats.desc, self.map.kf_desc[kf])
+        # with the split: the keyframe's rows on the tracker, the view's points
+        kf_mp_idx, kf_feat_valid, kf_desc = self._to_tracker(
+            (self.map.kf_mp_idx[kf], self.map.kf_feat_valid[kf], self.map.kf_desc[kf]))
+        mp_pos = self._view[0] if self._split else self.map.mp_pos
+        has_mp = kf_feat_valid & (kf_mp_idx >= 0)
+        dist = hamming_matrix(frame.feats.desc, kf_desc)
         masked = torch.where(frame.feats.valid[:, None] & has_mp[None, :], dist, 1 << 20)
         best = masked.amin(dim=1)
         bj = masked.argmin(dim=1)
@@ -1109,7 +1240,7 @@ class SLAM:
             return False
         mp = kf_mp_idx[bj]
         inv_s2 = _octave_inv_sigma2(frame.feats.octave, self.cfg.orb.scale_factor)
-        obs = PoseObs(pw=self.map.mp_pos[mp.clamp(0, M - 1).long()], uv=frame.feats.uv,
+        obs = PoseObs(pw=mp_pos[mp.clamp(0, M - 1).long()], uv=frame.feats.uv,
                       right_u=frame.right_u, inv_sigma2=inv_s2,
                       is_stereo=frame.right_u > 0, valid=ok)
         Tcw, inlier, n_in = optimize_pose(
@@ -1139,14 +1270,15 @@ class SLAM:
         if self.loop_closer is None:
             return None, {"reloc": "no_vocab"}
         vocab = self.loop_closer.vocab
-        words = bow_vocabulary.transform(vocab, frame.feats.desc, frame.feats.valid)
+        frame_q = self._to_map(frame)   # the query and the cascade run on the map's device
+        words = bow_vocabulary.transform(vocab, frame_q.feats.desc, frame_q.feats.valid)
         qvec = sparse_bow(vocab, words, self.cfg.bow.max_words_per_query)
         cand_ids, _ = find_reloc_candidates(self.loop_closer.db, self.map, qvec,
                                             n_words=vocab.n_words)
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator(device=self.map_device)
         gen.manual_seed(fid)
         packed_dev, mp_dev = reloc_all_candidates(
-            self.map, self.cam, frame, cand_ids, gen, **self._reloc_common)
+            self.map, self.map_cam, frame_q, cand_ids, gen, **self._reloc_common)
         packed = packed_dev.cpu().numpy()  # the ONE fetch of the LOST frame
         info = {"reloc_candidates": int((packed[:, 2] >= 0).sum())}
         acc = packed[:, 0] > 0
@@ -1156,11 +1288,11 @@ class SLAM:
         cand = int(packed[i, 2])
         pose = packed[i, 3:].reshape(4, 4).copy()
         # accepted: rebuild the tracking state around the matched keyframe
-        self.last = SlamFrame(frame=frame, Tcw=packed_dev[i, 3:].reshape(4, 4).clone(),
-                              mp_ids=mp_dev[i])
+        self.last = SlamFrame(frame=frame, Tcw=packed_dev[i, 3:].reshape(4, 4).to(self.device, copy=True),
+                              mp_ids=self._to_tracker(mp_dev[i]))
         self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
         self.ref_kf = cand
-        self.local = self._snapshot(self.map, cand)
+        self._publish_local(self._snapshot(self.map, cand), refresh_view=True)
         self.state = TrackState.OK
         self.last_reloc_fid = fid
         self.trajectory.append((fid, pose))
@@ -1214,9 +1346,12 @@ class SLAM:
                 self._grow(mp_capacity=2 * self.map.mp_capacity)
         self._flush_pending(next_kf_arriving=True)
         kf_id = self._n_kf
+        cur_m = self._to_map(cur)
         with self._keyframe_program("map_front"):
-            self.map, self.local, last_mp_ids, last_Tcw = self.map_front_program(
-                self.map, cur.frame, cur.Tcw, cur.mp_ids, fid, kf_id)
+            self.map, local, last_mp_ids, last_Tcw = self.map_front_program(
+                self.map, cur_m.frame, cur_m.Tcw, cur_m.mp_ids, fid, kf_id)
+        self._publish_local(local, refresh_view=True)
+        last_mp_ids, last_Tcw = self._to_tracker((last_mp_ids, last_Tcw))
         self._n_kf += 1
         self._pending_kf = kf_id
         if self.cfg.mapping.synchronous:
@@ -1233,9 +1368,11 @@ class SLAM:
         keyframe grow re-snapshots ``local`` (its K-sized mask) and re-pads
         the place-recognition rows."""
         self.map = grow_map(self.map, kf_capacity=kf_capacity, mp_capacity=mp_capacity)
+        if mp_capacity is not None and self._split:
+            self._refresh_view()
         if kf_capacity is not None:
             if self.local is not None:
-                self.local = self._snapshot(self.map, self.ref_kf)
+                self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
             if self.loop_closer is not None:
                 self.loop_closer.grow(kf_capacity)
 
@@ -1272,7 +1409,8 @@ class SLAM:
         do_ba = mp.ba_stride > 0 and self._tail_counter % mp.ba_stride == 0
         do_cull = mp.kf_cull_stride > 0 and (self._tail_counter + 1) % mp.kf_cull_stride == 0
         with self._keyframe_program("map_tail"):
-            self.map, self.local = self.map_tail_program(self.map, kf_id, do_ba, do_cull)
+            self.map, local = self.map_tail_program(self.map, kf_id, do_ba, do_cull)
+        self._publish_local(local, refresh_view=True)
         if self.enable_loop_closing:
             self._dispatch_loop_detect(kf_id)
 
@@ -1327,7 +1465,7 @@ class SLAM:
             return
         self.loop_closer = LoopCloser(self.cfg, self._resolve_vocab(kf_id))
         self.loop_closer.grow(self.map.kf_capacity)
-        if self.device.type == "cuda":
+        if self.map_device.type == "cuda":
             self._warm_loop_programs()
         self.loop_closer.span = self._loop_stage
 
@@ -1337,14 +1475,15 @@ class SLAM:
         pays no one-off library load or allocation mid-run.  The map is not
         written; keyframe 0 is registered in the keyframe database, as the
         JAX warm-up leaves it."""
-        self.loop_closer.warmup(self.map, self.cam)
+        self.loop_closer.warmup(self.map, self.map_cam, mesh=self.mesh)
         b, lp = self.cfg.ba, self.cfg.loop
         phase1 = lp.global_ba_phase_iters[0]
         pend = start_global_ba(self.map, self.cfg.orb.scale_factor)
         for done in (0, phase1):   # the ungated and the gated chunk
-            step_global_ba(pend._replace(chunks_done=done), self.cam, n_iters=1,
+            step_global_ba(pend._replace(chunks_done=done), self.map_cam, n_iters=1,
                            pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
-                           chi2_stereo=b.chi2_stereo, robust_after=phase1)
+                           chi2_stereo=b.chi2_stereo, robust_after=phase1, mesh=self.mesh,
+                           axis=self.cfg.dist.mesh_axis)
         commit_global_ba(self.map, pend)
 
     def _add_kf_to_db(self, kf_id: int) -> None:
@@ -1364,19 +1503,19 @@ class SLAM:
             if not os.path.exists(b.vocab_path):
                 raise FileNotOpenError(f"vocabulary file not found: {b.vocab_path}")
             if b.vocab_path.endswith(".txt"):
-                return bow_vocabulary.load_dbow_text(b.vocab_path, self.device)
-            return bow_vocabulary.load_vocabulary(b.vocab_path, self.device)
+                return bow_vocabulary.load_dbow_text(b.vocab_path, self.map_device)
+            return bow_vocabulary.load_vocabulary(b.vocab_path, self.map_device)
         assets_dir = os.path.join(os.path.dirname(__file__), "..", "assets")
         for name in ("vocab_synth_l5.npz", "vocab_synth.npz"):
             asset = os.path.join(assets_dir, name)
             if os.path.exists(asset):
-                vocab = bow_vocabulary.load_vocabulary(asset, self.device)
+                vocab = bow_vocabulary.load_vocabulary(asset, self.map_device)
                 if vocab.branching == b.branching and vocab.depth == b.depth:
                     return vocab
         desc = self.map.kf_desc[kf_id].cpu().numpy()
         valid = self.map.kf_feat_valid[kf_id].cpu().numpy()
         return bow_vocabulary.train_vocabulary(desc[valid], branching=b.branching, depth=b.depth,
-                                               device=self.device)
+                                               device=self.map_device)
 
     # ------------------------------------------------------------------
     def _dispatch_loop_detect(self, kf_id: int) -> None:
@@ -1408,9 +1547,9 @@ class SLAM:
     def _dispatch_frame_loop_query(self, state: SlamFrame) -> None:
         """Dispatch a frame-BoW candidate query (no registration) anchored at
         the tracking reference keyframe; it feeds the same chains."""
+        desc, valid = self._to_map((state.frame.feats.desc, state.frame.feats.valid))
         with self._keyframe_program("loop_detect"):
-            out = self.loop_closer.detect_frame_async(
-                self.map, state.frame.feats.desc, state.frame.feats.valid, int(self.ref_kf))
+            out = self.loop_closer.detect_frame_async(self.map, desc, valid, int(self.ref_kf))
         if out is not None:
             self._pending_loops.append((int(self.ref_kf), out, True))
 
@@ -1421,7 +1560,7 @@ class SLAM:
         with self._loop_stage("resolve"):
             cand = self.loop_closer.detect_resolve(kf_id, out, kf_window=not is_frame)
             if cand is not None:
-                self.loop_closer.sim3_begin(self.map, self.cam, kf_id, cand)
+                self.loop_closer.sim3_begin(self.map, self.map_cam, kf_id, cand)
         return False
 
     def _step_pending_sim3(self) -> bool:
@@ -1429,7 +1568,7 @@ class SLAM:
         (group propagation, fuses, essential graph), snapshot the background
         GBA and re-anchor the tracker (LoopClosing.cc:53-169)."""
         with self._loop_stage("sim3_step"):
-            res = self.loop_closer.sim3_step(self.map, self.cam)
+            res = self.loop_closer.sim3_step(self.map, self.map_cam)
         if res is None:
             return False
         kf_id, cand, S12, matched_mp, group = res
@@ -1437,8 +1576,8 @@ class SLAM:
         self._pending_gba = None
         ref_before = self.map.kf_Tcw[self.ref_kf].clone()
         with self._loop_stage("correct"):
-            self.map = self.loop_closer.correct(self.map, self.cam, kf_id, cand, S12, matched_mp, group,
-                                                run_gba=False)
+            self.map = self.loop_closer.correct(self.map, self.map_cam, kf_id, cand, S12, matched_mp, group,
+                                                run_gba=False, mesh=self.mesh)
         with self._loop_stage("gba_start"):
             self._pending_gba = start_global_ba(self.map, self.cfg.orb.scale_factor)
         self.loops_closed += 1
@@ -1447,7 +1586,7 @@ class SLAM:
         # candidates and chains
         self._pending_loops.clear()
         self.loop_closer.consistent_groups = []
-        self.local = self._snapshot(self.map, self.ref_kf)
+        self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
         self._reanchor_tracker(ref_before)
         return True
 
@@ -1457,8 +1596,9 @@ class SLAM:
         phase1 = lp.global_ba_phase_iters[0]
         with self._keyframe_program("gba_chunk"):
             self._pending_gba = step_global_ba(
-                self._pending_gba, self.cam, n_iters=1, pcg_iters=b.pcg_iters,
-                chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1)
+                self._pending_gba, self.map_cam, n_iters=1, pcg_iters=b.pcg_iters,
+                chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1,
+                mesh=self.mesh, axis=self.cfg.dist.mesh_axis)
         if self._pending_gba.chunks_done >= sum(lp.global_ba_phase_iters):
             self._commit_pending_gba()
 
@@ -1469,7 +1609,7 @@ class SLAM:
         with self._loop_stage("gba_commit"):
             self.map = commit_global_ba(self.map, self._pending_gba)
         self._pending_gba = None
-        self.local = self._snapshot(self.map, self.ref_kf)
+        self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
         self._reanchor_tracker(ref_before)
 
     def _reanchor_tracker(self, ref_before: torch.Tensor) -> None:
@@ -1491,7 +1631,7 @@ class SLAM:
         old map — was lost on the loop world)."""
         if self.last is None:
             return
-        delta = se3.inverse(ref_before) @ self.map.kf_Tcw[self.ref_kf]
+        delta = self._to_tracker(se3.inverse(ref_before) @ self.map.kf_Tcw[self.ref_kf])
         self.last = self.last._replace(Tcw=self.last.Tcw @ delta)
         if self._inflight is None:
             self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
@@ -1501,12 +1641,14 @@ class SLAM:
                                       last_in=inf.last_in._replace(Tcw=inf.last_in.Tcw @ delta))
         self.velocity = inf.velocity
 
-    def run_global_ba(self) -> None:
-        """Full-map bundle adjustment now (reference globalOptimization)."""
-        self.map = global_ba(self.map, self.cam, scale_factor=self.cfg.orb.scale_factor,
-                             pcg_iters=self.cfg.ba.pcg_iters)
+    def run_global_ba(self, mesh=None) -> None:
+        """Full-map bundle adjustment now (reference globalOptimization),
+        sharded over ``mesh`` or the SLAM's own."""
+        self.map = global_ba(self.map, self.map_cam, scale_factor=self.cfg.orb.scale_factor,
+                             pcg_iters=self.cfg.ba.pcg_iters, mesh=mesh or self.mesh,
+                             axis=self.cfg.dist.mesh_axis)
         if self.local is not None:
-            self.local = self._snapshot(self.map, self.ref_kf)
+            self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
 
     @staticmethod
     def _is_txt_path(path: str) -> bool:
@@ -1551,12 +1693,14 @@ class SLAM:
         vocab = None
         if path.endswith(".pb") or self._is_txt_path(path):
             reader = load_proto_map if path.endswith(".pb") else load_txt_map
-            self.map = reader(path, self.cfg, self.device)
+            self.map = reader(path, self.cfg, self.map_device)
             vocab = self._resolve_vocab(0)
         else:
-            self.map, _ = load_map(path + ".map.npz", self.device)
+            self.map, _ = load_map(path + ".map.npz", self.map_device)
             if os.path.exists(path + ".vocab.npz"):
-                vocab = bow_vocabulary.load_vocabulary(path + ".vocab.npz", self.device)
+                vocab = bow_vocabulary.load_vocabulary(path + ".vocab.npz", self.map_device)
+        if self._split:
+            self._refresh_view()
         self._n_kf = int(self.map.next_kf)
         if vocab is not None:
             self.loop_closer = LoopCloser(self.cfg, vocab)

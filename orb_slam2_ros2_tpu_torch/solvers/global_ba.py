@@ -15,8 +15,11 @@ edge layout of the PCG-Schur engine, so extraction is gathering.
   ``start`` reads back the allocation watermarks and the view size and
   copies every buffer it keeps; a chunk reads nothing back.
 
-The point/camera-sharded chunk waits for the multi-GPU item of the port
-queue.
+Both take a device ``mesh`` (``parallel/mesh.py``): the solve then shards
+the points and cameras over it (``pcg_ba.solve_global_ba_sharded``); the
+background solve pads and splits its snapshot once, on its first chunk,
+and keeps the shards in ``PendingGBA.shards`` (JAX caches the sharded chunk
+program instead).
 """
 
 from __future__ import annotations
@@ -28,7 +31,16 @@ import torch
 from ..geometry import se3
 from ..geometry.camera import CameraParams
 from ..mapstate.map_state import MapState
-from .pcg_ba import GlobalBAProblem, PointBAProblem, global_ba_phase, point_to_global, solve_global_ba
+from .pcg_ba import (
+    GlobalBAProblem,
+    PointBAProblem,
+    _pad_global,
+    _shard_global,
+    global_ba_phase,
+    point_to_global,
+    solve_global_ba,
+    solve_global_ba_sharded,
+)
 
 
 def extract_global_problem(state: MapState, scale_factor: float = 1.2) -> PointBAProblem:
@@ -66,12 +78,18 @@ def global_ba(
     pcg_iters: int = 40,
     lam: float = 0.1,
     mesh=None,
+    axis: str = "ba",
 ) -> MapState:
-    """Run the global BA and commit its poses and points."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded global BA is not ported yet (ROADMAP port queue: multi-GPU)")
+    """Run the global BA (sharded over ``mesh`` when given) and commit its
+    poses and points."""
     prob = extract_global_problem(state, scale_factor)
-    Tcw, pts, _ = solve_global_ba(cam, prob, phase_iters=phase_iters, pcg_iters=pcg_iters, lam=lam)
+    if mesh is not None:
+        Tcw, pts, _ = solve_global_ba_sharded(cam, prob, mesh, axis=axis, phase_iters=phase_iters,
+                                              pcg_iters=pcg_iters, lam=lam)
+        dev = state.kf_Tcw.device
+        Tcw, pts = Tcw.to(dev), pts.to(dev)
+    else:
+        Tcw, pts, _ = solve_global_ba(cam, prob, phase_iters=phase_iters, pcg_iters=pcg_iters, lam=lam)
     return state._replace(
         kf_Tcw=torch.where(state.kf_valid[:, None, None], Tcw, state.kf_Tcw),
         mp_pos=torch.where(prob.pt_valid[:, None], pts, state.mp_pos),
@@ -93,6 +111,9 @@ class PendingGBA(NamedTuple):
     snap_next_kf: int
     snap_next_mp: int
     chunks_done: int
+    # (mesh, this process's shards of the padded problem): made by the
+    # first sharded chunk and kept for the rest of the solve
+    shards: Optional[tuple] = None
 
 
 def _watermarks(n_kf: int, n_mp: int, K: int, M: int):
@@ -156,18 +177,33 @@ def step_global_ba(
     chi2_stereo: float = 7.815,
     robust_after: int = 1,
     mesh=None,
+    axis: str = "ba",
 ) -> PendingGBA:
     """Advance the solve by one chunk of ``n_iters`` damped-GN steps; chunks
     from ``robust_after`` on gate observations by the χ² of their entry
-    iterate.  Reads nothing back."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded global BA is not ported yet (ROADMAP port queue: multi-GPU)")
-    Tcw, ptsT = global_ba_phase(
-        cam, pending.prob, pending.Tcw, pending.ptsT, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
-        n_iters=n_iters, pcg_iters=pcg_iters, lam=lam,
-        robust_gate=pending.chunks_done >= robust_after,
-    )
-    return pending._replace(Tcw=Tcw, ptsT=ptsT, chunks_done=pending.chunks_done + 1)
+    iterate.  With a ``mesh`` the chunk runs sharded: the snapshot is padded
+    and split on the first sharded chunk and kept in ``shards``; the point
+    iterate is split and gathered around each chunk.  Reads nothing back."""
+    kw = dict(chi2_mono=chi2_mono, chi2_stereo=chi2_stereo, n_iters=n_iters, pcg_iters=pcg_iters,
+              lam=lam, robust_gate=pending.chunks_done >= robust_after)
+    if mesh is None:
+        Tcw, ptsT = global_ba_phase(cam, pending.prob, pending.Tcw, pending.ptsT, **kw)
+        return pending._replace(Tcw=Tcw, ptsT=ptsT, chunks_done=pending.chunks_done + 1)
+    if mesh.axis != axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    if pending.shards is None or pending.shards[0] is not mesh:
+        pending = pending._replace(shards=(mesh, _shard_global(_pad_global(pending.prob, mesh.size), mesh)))
+    shards = pending.shards[1]
+    K0, M0 = pending.Tcw.shape[0], pending.ptsT.shape[1]
+    Kp = shards[0].cam_Tcw.shape[0]
+    Mp = shards[0].pt_pos.shape[0] * mesh.size
+    eye = torch.eye(4, dtype=pending.Tcw.dtype, device=pending.Tcw.device).expand(Kp - K0, 4, 4)
+    Tcw = torch.cat([pending.Tcw, eye]).to(mesh.device)
+    ptsT = torch.cat([pending.ptsT, pending.ptsT.new_zeros((3, Mp - M0))], dim=1)
+    Tcw, ptsT = global_ba_phase(cam, shards, Tcw, mesh.split(ptsT), axis=mesh, **kw)
+    dev = pending.Tcw.device
+    return pending._replace(Tcw=Tcw[:K0].to(dev), ptsT=mesh.all_gather(ptsT)[:, :M0].to(dev),
+                            chunks_done=pending.chunks_done + 1)
 
 
 def commit_global_ba(state: MapState, pending: PendingGBA, *,

@@ -14,8 +14,14 @@ hold} by the gated Huber cost.  Nothing reads back to the host.
 ``point_to_global`` builds the camera-major view on the device by a stable
 sort of the edges by camera; its slot tables equal the JAX package's host
 numpy version.  It reads back one integer, the largest per-camera edge
-count that sizes the view.  The point/camera-sharded solve waits for the
-multi-GPU item of the port queue.
+count that sizes the view.
+
+``solve_global_ba_sharded`` and a ``global_ba_phase`` with a mesh ``axis``
+shard the points on the point-major side and the cameras on the
+camera-major side over a device mesh (``parallel/mesh.py``); per matvec the
+shards exchange the marginalized point vector and the camera result by
+``all_gather``, and the three line-search costs are joined by ``psum`` so
+that every shard takes the same step (JAX ``shard_map`` in_specs).
 """
 
 from __future__ import annotations
@@ -94,9 +100,21 @@ def _pm_terms(cam, prob: GlobalBAProblem, Tcw, ptsT) -> edge_fm.EdgeTerms:
     )
 
 
-def _cm_terms(cam, prob: GlobalBAProblem, Tcw, ptsT) -> edge_fm.EdgeTerms:
+def _local_cam_block(x: torch.Tensor, K_local: int, block: Optional[int]) -> torch.Tensor:
+    """Rows ``block``·K_local … of a replicated camera-axis array: the
+    camera block of that shard (JAX ``axis_index``); the array itself when
+    unsharded."""
+    if block is None or x.shape[0] == K_local:
+        return x
+    return x[block * K_local:(block + 1) * K_local]
+
+
+def _cm_terms(cam, prob: GlobalBAProblem, Tcw, ptsT, block: Optional[int] = None) -> edge_fm.EdgeTerms:
     """Camera-major edge terms ([*, N, K] planes): the camera pose broadcasts
-    over the feature axis, the points are gathered."""
+    over the feature axis, the points are gathered from the whole map
+    ``ptsT``.  ``Tcw`` may be the replicated array of every camera: it is
+    cut to the camera block of slot ``block``."""
+    Tcw = _local_cam_block(Tcw, prob.cm_pt.shape[1], block)
     C = Tcw.shape[0]
     return edge_fm.edge_terms(
         cam, Tcw[:, :3, :3].reshape(C, 9).T[:, None, :], Tcw[:, :3, 3].T[:, None, :],
@@ -109,52 +127,112 @@ def _weights(chi2, gate, inv_sigma2, chi2_th):
     return torch.where(chi2 < 1e4 * chi2_th, w, 0.0)
 
 
-def _robust_cost(cam, prob: GlobalBAProblem, Tcw, ptsT, pm_gate, pm_th):
+class _Unsharded:
+    """The collectives of an unsharded solve: one shard, nothing to join."""
+
+    local = [None]
+
+    def broadcast(self, x):
+        return [x]
+
+    def psum(self, xs):
+        return xs[0]
+
+    def all_gather(self, xs, dim: int = -1):
+        return xs[0]
+
+
+_ONE = _Unsharded()
+
+
+def _shards(axis, *args):
+    """(collectives, per-shard lists of ``args``): ``axis`` None takes one
+    unsharded problem and its arrays, a mesh takes the lists of its local
+    shards (``_shard_global``)."""
+    if axis is None:
+        return _ONE, [[a] for a in args]
+    return axis, list(args)
+
+
+def _on(cam: CameraParams, dev) -> CameraParams:
+    return CameraParams(*(t.to(dev) for t in cam))
+
+
+def _robust_cost(cam, prob, Tcw, ptsT, pm_gate, pm_th, axis=None):
     """Gated Huber total cost over the point-major view (each edge once),
-    capped at the 1e4·th weight cutoff."""
-    chi2 = _pm_terms(cam, prob, Tcw, ptsT).chi2
-    rho = torch.where(chi2 <= pm_th, chi2, 2.0 * torch.sqrt(pm_th * torch.clamp(chi2, min=0.0)) - pm_th)
-    rho = torch.minimum(rho, 199.0 * pm_th)
-    return torch.sum(torch.where(pm_gate & prob.pm_valid, rho, 0.0))
+    capped at the 1e4·th weight cutoff; with a mesh (``prob``, ``ptsT``,
+    ``pm_gate``, ``pm_th`` lists of the local shards, ``Tcw`` replicated)
+    the shards' costs joined by ``psum``."""
+    mesh, lists = _shards(axis, prob, ptsT, pm_gate, pm_th)
+    return _cost(cam, mesh, Tcw, *lists)
 
 
-def _gn_step(cam, prob: GlobalBAProblem, Tcw, ptsT, pm_gate, cm_gate, lam: float,
-             pcg_iters: int, pm_th, cm_th):
-    """One robust GN step with the PCG-Schur solve; returns (Tcw, ptsT)."""
+def _cost(cam, mesh, Tcw, probs, pts, gates, ths):
+    costs = []
+    for p, T, q, g, th in zip(probs, mesh.broadcast(Tcw), pts, gates, ths):
+        chi2 = _pm_terms(_on(cam, q.device), p, T, q).chi2
+        rho = torch.where(chi2 <= th, chi2, 2.0 * torch.sqrt(th * torch.clamp(chi2, min=0.0)) - th)
+        rho = torch.minimum(rho, 199.0 * th)
+        costs.append(torch.sum(torch.where(g & p.pm_valid, rho, 0.0)))
+    return mesh.psum(costs)
+
+
+def _gn_step(cam, prob, Tcw, ptsT, pm_gate, cm_gate, lam: float, pcg_iters: int, pm_th, cm_th,
+             axis=None):
+    """One robust GN step with the PCG-Schur solve; returns (Tcw, ptsT).
+
+    With a mesh ``axis``, ``prob``, ``ptsT``, the gates and thresholds are
+    lists of the local shards (points sharded on the point-major side,
+    cameras on the camera-major side) and ``Tcw`` is replicated on the
+    mesh's first local device: the point and camera reductions run on each
+    shard, the reduced camera system is assembled by ``all_gather`` and
+    the PCG, its decisions and the step on the cameras run once (JAX's
+    ``shard_map`` body, which repeats them on every shard)."""
+    mesh, (probs, ptsTs, pm_gates, cm_gates, pm_ths, cm_ths) = _shards(
+        axis, prob, ptsT, pm_gate, cm_gate, pm_th, cm_th)
     dev = Tcw.device
-    pm_cam = prob.pm_cam.long()
-    cm_pt = prob.cm_pt.long()
+    cams = [_on(cam, q.device) for q in ptsTs]
+    Tcws = mesh.broadcast(Tcw)
 
     # ---- point-major pass: Hpp, Wp, b_p, per-edge G ----------------------
-    tm = _pm_terms(cam, prob, Tcw, ptsT)
-    w_pm = _weights(tm.chi2, pm_gate, prob.pm_inv_sigma2, pm_th)
-    tm = tm._replace(Jc=torch.where(prob.cam_free[pm_cam][None], tm.Jc, 0.0))
-    Hpp6 = edge_fm.hpp_comps(tm, w_pm, reduce_axis=-2)             # [6, M]
-    b_p3 = edge_fm.bp_comps(tm, w_pm, reduce_axis=-2)              # [3, M]
-    comp = torch.arange(6, device=dev)[:, None]
-    lam_diag = ((comp == 0) | (comp == 3) | (comp == 5)).to(torch.float32) * (lam + 1e-9)
-    Wp6 = edge_fm.sym3_inv(Hpp6 + lam_diag)
-    Wp6 = torch.where(prob.pt_valid[None, :], Wp6, 0.0)
-    G_pm = edge_fm.g_comps(tm, w_pm)                               # [18, O, M]
+    pm = []
+    for c, p, T, q, g, th in zip(cams, probs, Tcws, ptsTs, pm_gates, pm_ths):
+        pm_cam = p.pm_cam.long()
+        tm = _pm_terms(c, p, T, q)
+        w_pm = _weights(tm.chi2, g, p.pm_inv_sigma2, th)
+        tm = tm._replace(Jc=torch.where(p.cam_free[pm_cam][None], tm.Jc, 0.0))
+        Hpp6 = edge_fm.hpp_comps(tm, w_pm, reduce_axis=-2)          # [6, M]
+        b_p3 = edge_fm.bp_comps(tm, w_pm, reduce_axis=-2)           # [3, M]
+        comp = torch.arange(6, device=q.device)[:, None]
+        lam_diag = ((comp == 0) | (comp == 3) | (comp == 5)).to(torch.float32) * (lam + 1e-9)
+        Wp6 = torch.where(p.pt_valid[None, :], edge_fm.sym3_inv(Hpp6 + lam_diag), 0.0)
+        pm.append((pm_cam, b_p3, Wp6, edge_fm.g_comps(tm, w_pm)))   # G_pm [18, O, M]
 
     # ---- camera-major pass: Hcc, b_c, b̃, per-edge G ---------------------
-    tc = _cm_terms(cam, prob, Tcw, ptsT)
-    w_cm = _weights(tc.chi2, cm_gate, prob.cm_inv_sigma2, cm_th)
-    tc = tc._replace(Jc=torch.where(prob.cam_free[None, None, :], tc.Jc, 0.0))
-    Hcc21 = edge_fm.hcc_comps(tc, w_cm, reduce_axis=-2)            # [21, K]
-    b_c = edge_fm.bc_comps(tc, w_cm, reduce_axis=-2)               # [6, K]
-    G_cm = edge_fm.g_comps(tc, w_cm)                               # [18, N, K]
+    ptsT_full = mesh.broadcast(mesh.all_gather(ptsTs))              # [3, M_all]
+    cm, hcc = [], []
+    for k, c, p, T, q, g, th in zip(mesh.local, cams, probs, Tcws, ptsT_full, cm_gates, cm_ths):
+        tc = _cm_terms(c, p, T, q, k)
+        w_cm = _weights(tc.chi2, g, p.cm_inv_sigma2, th)
+        free = _local_cam_block(p.cam_free, p.cm_pt.shape[1], k)
+        tc = tc._replace(Jc=torch.where(free[None, None, :], tc.Jc, 0.0))
+        hcc.append(edge_fm.hcc_comps(tc, w_cm, reduce_axis=-2))    # [21, K_local]
+        cm.append((p.cm_pt.long(), edge_fm.bc_comps(tc, w_cm, reduce_axis=-2), edge_fm.g_comps(tc, w_cm)))
+    Hcc21 = mesh.all_gather(hcc)                                    # [21, K]
 
     # b̃ = b_c − Σ_n G · (Wp b_p)[point of edge]
-    Wb = edge_fm.sym3_apply(Wp6, b_p3)                             # [3, M]
-    b_schur = b_c - torch.sum(edge_fm.g_apply(G_cm, Wb[:, cm_pt]), dim=-2)
-    anchor = torch.where(prob.cam_free, 0.0, 1.0)[None, :]         # [1, K]
+    Wb_full = mesh.broadcast(mesh.all_gather([edge_fm.sym3_apply(Wp6, b_p3) for _, b_p3, Wp6, _ in pm]))
+    b_schur = mesh.all_gather([b_c - torch.sum(edge_fm.g_apply(G_cm, Wb[:, cm_pt]), dim=-2)
+                               for (cm_pt, b_c, G_cm), Wb in zip(cm, Wb_full)])    # [6, K]
+    free = probs[0].cam_free.to(dev)                                # [K]
+    anchor = torch.where(free, 0.0, 1.0)[None, :]                   # [1, K]
 
     def matvec(x):                                                 # [6, K] → [6, K]
-        t_p = torch.sum(edge_fm.gT_apply(G_pm, x[:, pm_cam]), dim=-2)   # [3, M]
-        z = edge_fm.sym3_apply(Wp6, t_p)
-        u = torch.sum(edge_fm.g_apply(G_cm, z[:, cm_pt]), dim=-2)
-        return -u + edge_fm.sym6_apply(Hcc21, x) + lam * x + anchor * x
+        z = [edge_fm.sym3_apply(Wp6, torch.sum(edge_fm.gT_apply(G_pm, xk[:, pm_cam]), dim=-2))
+             for (pm_cam, _, Wp6, G_pm), xk in zip(pm, mesh.broadcast(x))]        # [3, M]
+        u = [torch.sum(edge_fm.g_apply(G_cm, zk[:, cm_pt]), dim=-2)
+             for (cm_pt, _, G_cm), zk in zip(cm, mesh.broadcast(mesh.all_gather(z)))]
+        return mesh.all_gather([-uk for uk in u]) + edge_fm.sym6_apply(Hcc21, x) + lam * x + anchor * x
 
     # block-Jacobi preconditioner from Hcc
     Hcc_p = edge_fm.sym6_to_dense(Hcc21) + (lam + 1.0) * torch.eye(6, device=dev)[None]
@@ -178,28 +256,32 @@ def _gn_step(cam, prob: GlobalBAProblem, Tcw, ptsT, pm_gate, cm_gate, lam: float
         p = z + beta * p
         rz = rz_new
     dx_c = torch.where(torch.isfinite(x), x, 0.0)
-    dx_c = torch.where(prob.cam_free[None, :], dx_c, 0.0)         # [6, K]
+    dx_c = torch.where(free[None, :], dx_c, 0.0)                    # [6, K]
 
-    # landmark back-substitution
-    tp = torch.sum(edge_fm.gT_apply(G_pm, dx_c[:, pm_cam]), dim=-2)
-    dx_p = edge_fm.sym3_apply(Wp6, b_p3 + tp)                      # [3, M]
-    dx_p = torch.where(torch.isfinite(dx_p), dx_p, 0.0)
+    # landmark back-substitution (on each point shard)
+    dx_p = []
+    for (pm_cam, b_p3, Wp6, G_pm), dxk in zip(pm, mesh.broadcast(dx_c)):
+        tp = torch.sum(edge_fm.gT_apply(G_pm, dxk[:, pm_cam]), dim=-2)
+        d = edge_fm.sym3_apply(Wp6, b_p3 + tp)                      # [3, M]
+        dx_p.append(torch.where(torch.isfinite(d), d, 0.0))
 
     def apply(s: float):
-        return se3.normalize(se3.exp((s * dx_c).T) @ Tcw), ptsT - s * dx_p
+        return (se3.normalize(se3.exp((s * dx_c).T) @ Tcw),
+                [q - s * d for q, d in zip(ptsTs, dx_p)])
 
     # monotone step acceptance: the best of {full, quarter, hold} by the
-    # gated Huber cost
-    c0 = _robust_cost(cam, prob, Tcw, ptsT, pm_gate, pm_th)
+    # gated Huber cost, its decisions taken once from the psum-joined costs
+    c0 = _cost(cam, mesh, Tcw, probs, ptsTs, pm_gates, pm_ths)
     T1, p1 = apply(1.0)
     T2, p2 = apply(0.25)
-    c1 = _robust_cost(cam, prob, T1, p1, pm_gate, pm_th)
-    c2 = _robust_cost(cam, prob, T2, p2, pm_gate, pm_th)
+    c1 = _cost(cam, mesh, T1, probs, p1, pm_gates, pm_ths)
+    c2 = _cost(cam, mesh, T2, probs, p2, pm_gates, pm_ths)
     use1 = (c1 <= c2) & (c1 < c0)
     use2 = ~use1 & (c2 < c0)
     Tcw_new = torch.where(use1, T1, torch.where(use2, T2, Tcw))
-    ptsT_new = torch.where(use1, p1, torch.where(use2, p2, ptsT))
-    return Tcw_new, ptsT_new
+    pts_new = [torch.where(u1, a, torch.where(u2, b_, q))
+               for a, b_, q, u1, u2 in zip(p1, p2, ptsTs, mesh.broadcast(use1), mesh.broadcast(use2))]
+    return Tcw_new, (pts_new if axis is not None else pts_new[0])
 
 
 def _thresholds(prob: GlobalBAProblem, chi2_mono: float, chi2_stereo: float):
@@ -207,29 +289,49 @@ def _thresholds(prob: GlobalBAProblem, chi2_mono: float, chi2_stereo: float):
             torch.where(prob.cm_right_u > 0, chi2_stereo, chi2_mono))
 
 
-def _gates(cam, prob: GlobalBAProblem, Tcw, ptsT, pm_th, cm_th):
-    """Observations whose χ² at (Tcw, ptsT) is inside their threshold."""
-    return (prob.pm_valid & (_pm_terms(cam, prob, Tcw, ptsT).chi2 < pm_th),
-            prob.cm_valid & (_cm_terms(cam, prob, Tcw, ptsT).chi2 < cm_th))
+def _gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis=None):
+    """Observations whose χ² at (Tcw, ptsT) is inside their threshold; with
+    a mesh, lists of the local shards' gates (the camera-major pass reads
+    the all-gathered points)."""
+    mesh, (probs, ptsTs, pm_ths, cm_ths) = _shards(axis, prob, ptsT, pm_th, cm_th)
+    full = mesh.broadcast(mesh.all_gather(ptsTs))
+    pm_g, cm_g = [], []
+    for k, p, T, q, qf, pth, cth in zip(mesh.local, probs, mesh.broadcast(Tcw), ptsTs, full, pm_ths, cm_ths):
+        c = _on(cam, q.device)
+        pm_g.append(p.pm_valid & (_pm_terms(c, p, T, q).chi2 < pth))
+        cm_g.append(p.cm_valid & (_cm_terms(c, p, T, qf, k).chi2 < cth))
+    return (pm_g, cm_g) if axis is not None else (pm_g[0], cm_g[0])
 
 
-def _solve_global(cam, prob: GlobalBAProblem, *, chi2_mono, chi2_stereo, phase_iters,
-                  pcg_iters, lam):
-    pm_th, cm_th = _thresholds(prob, chi2_mono, chi2_stereo)
-    Tcw, ptsT = prob.cam_Tcw, prob.pt_pos.T
-    pm_gate, cm_gate = prob.pm_valid, prob.cm_valid
+def _shard_thresholds(prob, chi2_mono, chi2_stereo, axis):
+    if axis is None:
+        return _thresholds(prob, chi2_mono, chi2_stereo)
+    ths = [_thresholds(p, chi2_mono, chi2_stereo) for p in prob]
+    return [a for a, _ in ths], [b for _, b in ths]
+
+
+def _solve_global(cam, prob, *, chi2_mono, chi2_stereo, phase_iters, pcg_iters, lam, axis=None):
+    """The phases of GN steps with the gates renewed between them; returns
+    (Tcw, ptsT, pm_gate), the last two per local shard with a mesh."""
+    pm_th, cm_th = _shard_thresholds(prob, chi2_mono, chi2_stereo, axis)
+    if axis is None:
+        Tcw, ptsT = prob.cam_Tcw, prob.pt_pos.T
+        pm_gate, cm_gate = prob.pm_valid, prob.cm_valid
+    else:
+        Tcw, ptsT = prob[0].cam_Tcw.to(axis.device), [p.pt_pos.T for p in prob]
+        pm_gate, cm_gate = [p.pm_valid for p in prob], [p.cm_valid for p in prob]
     for n_iters in phase_iters:
         for _ in range(n_iters):
-            Tcw, ptsT = _gn_step(cam, prob, Tcw, ptsT, pm_gate, cm_gate, lam, pcg_iters, pm_th, cm_th)
-        pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th)
-    return Tcw, ptsT.T, pm_gate
+            Tcw, ptsT = _gn_step(cam, prob, Tcw, ptsT, pm_gate, cm_gate, lam, pcg_iters, pm_th, cm_th, axis)
+        pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis)
+    return Tcw, ptsT, pm_gate
 
 
 def global_ba_phase(
     cam: CameraParams,
-    prob: GlobalBAProblem,
+    prob,
     Tcw: torch.Tensor,
-    ptsT: torch.Tensor,
+    ptsT,
     *,
     chi2_mono: float = 5.991,
     chi2_stereo: float = 7.815,
@@ -237,18 +339,23 @@ def global_ba_phase(
     pcg_iters: int = 40,
     lam: float = 0.1,
     robust_gate: bool = True,
+    axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One resumable phase: ``n_iters`` damped-GN steps from (Tcw, ptsT) —
     the chunk of the background global BA.  ``robust_gate=False`` is the
     ungated first phase of ``solve_global_ba``; otherwise observations are
-    gated by the χ² of the entry iterate."""
-    pm_th, cm_th = _thresholds(prob, chi2_mono, chi2_stereo)
+    gated by the χ² of the entry iterate.  With a mesh ``axis``, ``prob``
+    and ``ptsT`` are the lists of its local shards (``_shard_global``) and
+    so is the returned ``ptsT``; ``Tcw`` is replicated."""
+    pm_th, cm_th = _shard_thresholds(prob, chi2_mono, chi2_stereo, axis)
     if robust_gate:
-        pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th)
-    else:
+        pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis)
+    elif axis is None:
         pm_gate, cm_gate = prob.pm_valid, prob.cm_valid
+    else:
+        pm_gate, cm_gate = [p.pm_valid for p in prob], [p.cm_valid for p in prob]
     for _ in range(n_iters):
-        Tcw, ptsT = _gn_step(cam, prob, Tcw, ptsT, pm_gate, cm_gate, lam, pcg_iters, pm_th, cm_th)
+        Tcw, ptsT = _gn_step(cam, prob, Tcw, ptsT, pm_gate, cm_gate, lam, pcg_iters, pm_th, cm_th, axis)
     return Tcw, ptsT
 
 
@@ -268,12 +375,88 @@ def solve_global_ba(
     [O, M] point-major)."""
     if isinstance(prob, PointBAProblem):
         prob = point_to_global(prob)
-    return _solve_global(cam, prob, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
-                         phase_iters=phase_iters, pcg_iters=pcg_iters, lam=lam)
+    Tcw, ptsT, gate = _solve_global(cam, prob, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
+                                    phase_iters=phase_iters, pcg_iters=pcg_iters, lam=lam)
+    return Tcw, ptsT.T, gate
 
 
-def solve_global_ba_sharded(*args, **kwargs):
-    raise NotImplementedError("the sharded global BA is not ported yet (ROADMAP port queue: multi-GPU)")
+def solve_global_ba_sharded(
+    cam: CameraParams,
+    prob,
+    mesh,
+    axis: str = "ba",
+    *,
+    chi2_mono: float = 5.991,
+    chi2_stereo: float = 7.815,
+    phase_iters: Tuple[int, ...] = (5, 5),
+    pcg_iters: int = 40,
+    lam: float = 0.1,
+):
+    """The global BA over a device mesh (``parallel.mesh.Mesh`` over
+    ``axis``): the problem padded to multiples of the mesh size
+    (``_pad_global``), its point-major arrays sharded over points and its
+    camera-major arrays over cameras (``_shard_global``), the shards joined
+    by the mesh's collectives.  Returns what ``solve_global_ba`` returns,
+    gathered, on the mesh's first local device."""
+    if isinstance(prob, PointBAProblem):
+        prob = point_to_global(prob)
+    if mesh.axis != axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    K0, M0 = prob.cam_Tcw.shape[0], prob.pt_pos.shape[0]
+    shards = _shard_global(_pad_global(prob, mesh.size), mesh)
+    Tcw, ptsT, gate = _solve_global(cam, shards, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
+                                    phase_iters=phase_iters, pcg_iters=pcg_iters, lam=lam, axis=mesh)
+    return Tcw[:K0], mesh.all_gather(ptsT).T[:M0], mesh.all_gather(gate)[:, :M0]
+
+
+def _pad_global(prob: GlobalBAProblem, n_dev: int) -> GlobalBAProblem:
+    """Pad the camera axis (minor dim of cm_* / cam arrays) and the point
+    axis (minor dim of pm_* / pt arrays) up to multiples of ``n_dev``;
+    padded slots are fixed / invalid and contribute nothing."""
+    K, M = prob.cam_Tcw.shape[0], prob.pt_pos.shape[0]
+    Kp, Mp = (-K) % n_dev, (-M) % n_dev
+    if Kp == 0 and Mp == 0:
+        return prob
+
+    def pad_last(x, n, val=0):
+        if n == 0:
+            return x
+        return torch.cat([x, torch.full((*x.shape[:-1], n), val, dtype=x.dtype, device=x.device)], dim=-1)
+
+    eye = torch.eye(4, dtype=prob.cam_Tcw.dtype, device=prob.cam_Tcw.device).expand(Kp, 4, 4)
+    return GlobalBAProblem(
+        cam_Tcw=torch.cat([prob.cam_Tcw, eye]) if Kp else prob.cam_Tcw,
+        cam_free=pad_last(prob.cam_free, Kp, False),
+        pt_pos=torch.cat([prob.pt_pos, prob.pt_pos.new_zeros((Mp, 3))]) if Mp else prob.pt_pos,
+        pt_valid=pad_last(prob.pt_valid, Mp, False),
+        pm_cam=pad_last(prob.pm_cam, Mp),
+        pm_uv=pad_last(prob.pm_uv, Mp),
+        pm_right_u=pad_last(prob.pm_right_u, Mp, -1.0),
+        pm_inv_sigma2=pad_last(prob.pm_inv_sigma2, Mp, 1.0),
+        pm_valid=pad_last(prob.pm_valid, Mp, False),
+        cm_pt=pad_last(prob.cm_pt, Kp),
+        cm_uv=pad_last(prob.cm_uv, Kp),
+        cm_right_u=pad_last(prob.cm_right_u, Kp, -1.0),
+        cm_inv_sigma2=pad_last(prob.cm_inv_sigma2, Kp, 1.0),
+        cm_valid=pad_last(prob.cm_valid, Kp, False),
+    )
+
+
+def _shard_global(prob: GlobalBAProblem, mesh) -> list:
+    """This process's shards of a padded problem, each on its slot's device
+    (JAX's in_specs): the camera arrays replicated, the point arrays and
+    point-major planes cut along the points, the camera-major planes along
+    the cameras."""
+    out = []
+    pts = mesh.split(prob.pt_pos, 0)
+    pm = [mesh.split(a) for a in (prob.pt_valid, prob.pm_cam, prob.pm_uv, prob.pm_right_u,
+                                  prob.pm_inv_sigma2, prob.pm_valid)]
+    cm = [mesh.split(a) for a in (prob.cm_pt, prob.cm_uv, prob.cm_right_u, prob.cm_inv_sigma2,
+                                  prob.cm_valid)]
+    for i, dev in enumerate(mesh.local_devices):
+        out.append(GlobalBAProblem(prob.cam_Tcw.to(dev), prob.cam_free.to(dev), pts[i].contiguous(),
+                                   *(a[i].contiguous() for a in pm), *(a[i].contiguous() for a in cm)))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -19,8 +19,12 @@ incidence matrix instead (dense H = Aᵀ W A; the PCG's sums are incidence
 matrix products): a float ``index_add_`` sums in no fixed order on CUDA, and
 the essential graph's rounding would then differ from run to run and
 everything tracked after a loop closure with it.  Neither solver reads back
-to the host.  The edge-sharded variant waits for the multi-GPU item of the
-port queue.
+to the host.
+
+With a device mesh (``parallel/mesh.py``) the PCG shards the edges: each
+shard linearizes and sums its own, the mesh's ``psum`` joins them, and the
+CG on the replicated vertex vectors runs once (JAX
+``_gn_step_pcg_sharded``).
 """
 
 from __future__ import annotations
@@ -132,38 +136,44 @@ def _gn_step_dense(prob: PoseGraphProblem, S: sim3.Sim3, damping: float) -> sim3
     return _finish_step(prob, S, dx.reshape(K, 7))
 
 
-def _gn_step_pcg(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, cg_iters: int) -> sim3.Sim3:
-    """Matrix-free normal-equation solve: H is applied edge by edge and never
-    built; the block-Jacobi preconditioner inverts the 7×7 diagonal blocks.
+def _edge_system(prob: PoseGraphProblem, S: sim3.Sim3, K: int):
+    """The normal equations' share of the edges of ``prob``, summed onto
+    the K vertices through the incidence matrices: ``b`` [K, 7], the block
+    diagonal [K, 49] and ``hx(x)`` = the edges' H·x [K, 7]."""
+    r, Ji, Jj, w = _linearize(prob, S)
+    E = r.shape[0]
+    Oi, Oj = _incidence(prob, K)
+    gi_idx, gj_idx = prob.edge_i.long(), prob.edge_j.long()
+    bi = torch.einsum("eki,e,ek->ei", Ji, w, r)
+    bj = torch.einsum("eki,e,ek->ei", Jj, w, r)
+
+    def hx(x):                                                     # x: [K, 7]
+        ye = torch.einsum("eij,ej->ei", Ji, x[gi_idx]) + torch.einsum("eij,ej->ei", Jj, x[gj_idx])
+        ye = w[:, None] * ye
+        gi = torch.einsum("eij,ei->ej", Ji, ye)
+        gj = torch.einsum("eij,ei->ej", Jj, ye)
+        return Oi @ gi + Oj @ gj
+
+    Hii = torch.einsum("eki,e,ekj->eij", Ji, w, Ji).reshape(E, 49)
+    Hjj = torch.einsum("eki,e,ekj->eij", Jj, w, Jj).reshape(E, 49)
+    return Oi @ bi + Oj @ bj, Oi @ Hii + Oj @ Hjj, hx
+
+
+def _pcg(prob: PoseGraphProblem, b, Hd, hx, damping: float, cg_iters: int) -> torch.Tensor:
+    """Block-Jacobi PCG on H·dx = −b, H = Σ edges + the anchor diagonal.
 
     The CG is ``jax.scipy.sparse.linalg.cg(tol=1e-6, maxiter=cg_iters)``:
     it stops once ‖r‖² ≤ 1e-12·‖b‖².  Here all ``cg_iters`` iterations run
     and the iterate freezes, on the device, at the first one that passes the
     test, so no iteration reads back to the host."""
-    K = prob.kf_valid.shape[0]
-    r, Ji, Jj, w = _linearize(prob, S)
-    E = r.shape[0]
+    K = b.shape[0]
     anchor = (prob.kf_fixed | ~prob.kf_valid).to(torch.float32)
     diag = anchor * 1e6 + damping                                  # [K]
-    Oi, Oj = _incidence(prob, K)
-    gi_idx, gj_idx = prob.edge_i.long(), prob.edge_j.long()
+    eye7 = torch.eye(7, dtype=b.dtype, device=b.device)
+    Hd_inv = torch.linalg.inv_ex(Hd.reshape(K, 7, 7) + (diag + 1e-8)[:, None, None] * eye7).inverse
 
-    bi = torch.einsum("eki,e,ek->ei", Ji, w, r)
-    bj = torch.einsum("eki,e,ek->ei", Jj, w, r)
-    b = Oi @ bi + Oj @ bj                                          # [K, 7]
-
-    def Hx(x):                                                     # x: [K, 7]
-        ye = torch.einsum("eij,ej->ei", Ji, x[gi_idx]) + torch.einsum("eij,ej->ei", Jj, x[gj_idx])
-        ye = w[:, None] * ye
-        gi = torch.einsum("eij,ei->ej", Ji, ye)
-        gj = torch.einsum("eij,ei->ej", Jj, ye)
-        return Oi @ gi + Oj @ gj + diag[:, None] * x
-
-    Hii = torch.einsum("eki,e,ekj->eij", Ji, w, Ji).reshape(E, 49)
-    Hjj = torch.einsum("eki,e,ekj->eij", Jj, w, Jj).reshape(E, 49)
-    eye7 = torch.eye(7, dtype=r.dtype, device=r.device)
-    Hd = (Oi @ Hii + Oj @ Hjj).reshape(K, 7, 7) + (diag + 1e-8)[:, None, None] * eye7
-    Hd_inv = torch.linalg.inv_ex(Hd).inverse
+    def Hx(x):
+        return hx(x) + diag[:, None] * x
 
     def precond(v):
         return torch.einsum("kij,kj->ki", Hd_inv, v)
@@ -187,7 +197,76 @@ def _gn_step_pcg(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, cg_iters:
         res = torch.where(active, r_n, res)
         p = torch.where(active, p_n, p)
         gamma = torch.where(active, gamma_n, gamma)
-    return _finish_step(prob, S, x)
+    return x
+
+
+def _gn_step_pcg(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, cg_iters: int) -> sim3.Sim3:
+    """Matrix-free normal-equation solve: H is applied edge by edge and never
+    built; the block-Jacobi preconditioner inverts the 7×7 diagonal blocks."""
+    b, Hd, hx = _edge_system(prob, S, prob.kf_valid.shape[0])
+    return _finish_step(prob, S, _pcg(prob, b, Hd, hx, damping, cg_iters))
+
+
+def _pad_edges(prob: PoseGraphProblem, n: int) -> PoseGraphProblem:
+    """The edge set padded to a multiple of ``n`` with invalid edges (their
+    measurement the identity, so that their residual is finite)."""
+    pad = (-prob.edge_i.shape[0]) % n
+    if not pad:
+        return prob
+    dev = prob.edge_i.device
+
+    def padt(a, fill=0):
+        return torch.cat([a, torch.full((pad,) + a.shape[1:], fill, dtype=a.dtype, device=dev)])
+
+    ident = sim3.identity((pad,), device=dev)
+    return prob._replace(
+        edge_i=padt(prob.edge_i), edge_j=padt(prob.edge_j),
+        edge_Sji=sim3.Sim3(*(torch.cat([a, b.to(a.dtype)]) for a, b in zip(prob.edge_Sji, ident))),
+        edge_valid=padt(prob.edge_valid, False), edge_weight=padt(prob.edge_weight),
+    )
+
+
+def _shard_edges(prob: PoseGraphProblem, mesh) -> list:
+    """This process's edge shards of a padded problem, each on its slot's
+    device with the vertex arrays replicated there."""
+    edges = [mesh.split(a, 0) for a in (prob.edge_i, prob.edge_j, *prob.edge_Sji,
+                                        prob.edge_valid, prob.edge_weight)]
+    out = []
+    for k, dev in enumerate(mesh.local_devices):
+        ei, ej, R, t, s, valid, weight = (e[k] for e in edges)
+        out.append(PoseGraphProblem(
+            S_cw=sim3.Sim3(*(a.to(dev) for a in prob.S_cw)), kf_valid=prob.kf_valid.to(dev),
+            kf_fixed=prob.kf_fixed.to(dev), edge_i=ei, edge_j=ej, edge_Sji=sim3.Sim3(R, t, s),
+            edge_valid=valid, edge_weight=weight))
+    return out
+
+
+def _gn_step_pcg_sharded(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, cg_iters: int,
+                         mesh, shards: list = None) -> sim3.Sim3:
+    """Edge-sharded matrix-free GN step (JAX ``_gn_step_pcg_sharded``): each
+    shard linearizes its edges and sums them onto the vertices; ``b``, the
+    block diagonal and every H·x are joined by the mesh's ``psum``, and the
+    PCG on the replicated [K, 7] vertex vectors runs once, on the mesh's
+    first local device.  ``shards``, when the caller keeps them across
+    steps, are the local edge shards (``_shard_edges``) of ``prob`` padded
+    to a multiple of the mesh size (``_pad_edges``).  Returns the step on
+    ``prob``'s device."""
+    K = prob.kf_valid.shape[0]
+    dev = prob.kf_valid.device
+    if shards is None:
+        prob = _pad_edges(prob, mesh.size)
+        shards = _shard_edges(prob, mesh)
+    systems = [_edge_system(p, sim3.Sim3(*x), K)
+               for p, x in zip(shards, zip(*(mesh.broadcast(a) for a in S)))]
+    b = mesh.psum([s[0] for s in systems])
+    Hd = mesh.psum([s[1] for s in systems])
+
+    def hx(x):
+        return mesh.psum([h(xd) for (_, _, h), xd in zip(systems, mesh.broadcast(x))])
+
+    rep = prob._replace(kf_valid=prob.kf_valid.to(mesh.device), kf_fixed=prob.kf_fixed.to(mesh.device))
+    dx = _pcg(rep, b, Hd, hx, damping, cg_iters).to(dev)
+    return _finish_step(prob, S, dx)
 
 
 def optimize_pose_graph(
@@ -198,14 +277,22 @@ def optimize_pose_graph(
     cg_iters: int = 150,
     dense_max_k: int = DENSE_MAX_K,
     mesh=None,
+    mesh_axis: str = "ba",
 ) -> sim3.Sim3:
     """Batched GN over the whole graph; returns the optimized S_cw.  Dense
-    Cholesky up to ``dense_max_k`` vertices, matrix-free PCG above."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the edge-sharded pose graph is not ported yet (ROADMAP port queue: multi-GPU)")
+    Cholesky up to ``dense_max_k`` vertices, matrix-free PCG above; with a
+    ``mesh`` (``parallel.mesh.Mesh`` over ``mesh_axis``) always the
+    edge-sharded PCG, the edges padded and split once for all iterations."""
     K = prob.kf_valid.shape[0]
     S = prob.S_cw
+    if mesh is not None:
+        if mesh.axis != mesh_axis:
+            raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {mesh_axis!r}")
+        prob = _pad_edges(prob, mesh.size)
+        shards = _shard_edges(prob, mesh)
+        for _ in range(iters):
+            S = _gn_step_pcg_sharded(prob, S, damping, cg_iters, mesh, shards)
+        return S
     for _ in range(iters):
         if K <= dense_max_k:
             S = _gn_step_dense(prob, S, damping)

@@ -22,6 +22,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 from test_cli_e2e import CFG_YAML, _write_kitti_layout
 from test_torch_mapping import rot_deg
 from test_torch_mapping import two_torch_threads  # noqa: F401  (autouse)
@@ -99,9 +100,29 @@ def test_trace_writes_a_chrome_trace(layout, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--ba-devices", "2"]])
-def test_multi_gpu_flags_raise(layout, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcli.main(kitti_args(layout, tmp_path / "x", "--device", "cpu", *flags))
+def test_multi_gpu_flags_raise(layout, tmp_path, capsys, monkeypatch, flags):
+    """The multi-device flags no longer raise.  ``--distributed`` without
+    the ``SLAM_*`` variables is the single-process no-op (process 0);
+    ``--ba-devices 2``, with the mesh's local device list two CPU slots,
+    builds the SLAM over a two-slot mesh.  Both track the layout."""
+    from orb_slam2_ros2_tpu_torch.parallel import mesh as tmesh
+    from orb_slam2_ros2_tpu_torch.pipeline import system as tsys
+
+    for var in ("SLAM_COORDINATOR", "SLAM_NUM_PROCESSES", "SLAM_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(tmesh, "local_devices", lambda devices=None: [torch.device("cpu")] * 2)
+    meshes = []
+    build = tsys.ba_mesh
+    monkeypatch.setattr(tsys, "ba_mesh", lambda *a, **kw: meshes.append(build(*a, **kw)) or meshes[-1])
+    tcli.main(kitti_args(layout, tmp_path / "x", "--device", "cpu", "--frames", "6", *flags))
+    out = capsys.readouterr()
+    res = json.loads(out.out.strip().splitlines()[-1])
+    assert res["frames"] == 6 and res["tracked"] >= 5, res
+    if flags == ["--distributed"]:
+        assert "[distributed] process 0" in out.err and not meshes
+        assert not torch.distributed.is_initialized()
+    else:
+        assert [m.size for m in meshes] == [2]
 
 
 def test_runs_as_a_module():

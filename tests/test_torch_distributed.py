@@ -1,0 +1,126 @@
+"""Multi-device operation of the port through its entry points, on the CPU.
+
+* The global BA through the SLAM system with ``dist.n_devices=2`` (mesh
+  slots ``["cpu"] * 2``), the counterpart of
+  ``tests/test_distributed_e2e.py`` (``slow`` in JAX) reached the cheap way:
+  the revisit world of ``test_torch_loop_slice.py`` walked from detection to
+  the committed GBA.  The essential graph and every background-GBA chunk
+  receive the SLAM's mesh, and the committed map matches the same walk
+  without a mesh within the loop slice's tolerances (keyframes 1e-3 m /
+  5e-3°, points 5e-3 m): the unsharded system solves the 16-keyframe
+  essential graph by the dense Cholesky, the sharded one by the PCG.
+* A ``SLAM`` with ``n_devices=2`` maps a synthetic sequence.
+* ``entry.dryrun_multichip(2)`` over two CPU slots.
+* Two processes joined over gloo through ``init_distributed`` and the
+  ``SLAM_*`` variables (``entry.run_ranks``, ``torch.multiprocessing``
+  spawn) solve the dry run's pose graph and global BA, one shard each; each
+  rank's result is bit-equal to the one-process two-shard mesh's.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+from test_torch_loop_closing import assert_maps_agree
+from test_torch_loop_slice import KF_CAND, KF_CUR, POINT_M, POSE_DEG, POSE_M, setup_slams
+from test_torch_mapping import two_torch_threads  # noqa: F401  (autouse)
+
+from orb_slam2_ros2_tpu_torch import entry
+from orb_slam2_ros2_tpu_torch.io.synthetic import SyntheticStereoDataset
+from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
+from orb_slam2_ros2_tpu_torch.pipeline import system as tsys
+from orb_slam2_ros2_tpu_torch.solvers import pose_graph as tpg
+
+MESH_SLOTS = ["cpu", "cpu"]
+
+
+def walk(ts):
+    """Detection → the three cascade stages → the closure → every GBA
+    chunk (the last commits)."""
+    ts._dispatch_loop_detect(KF_CUR)
+    ts._resolve_pending_loop()
+    for _ in range(3):
+        ts._step_pending_sim3()
+    assert ts.loops_closed == 1 and ts.map.loop_edges[0].tolist() == [KF_CUR, KF_CAND]
+    for _ in range(sum(ts.cfg.loop.global_ba_phase_iters)):
+        ts._step_pending_gba()
+    assert ts._pending_gba is None
+
+
+def test_gba_through_the_system_rides_the_mesh(monkeypatch):
+    """The port's half of the loop slice's walk, once with ``n_devices=2``
+    (every sharded call spied) and once without."""
+    _, plain = setup_slams()
+    _, sharded = setup_slams()
+    cfg = sharded.cfg.replace(dist=dataclasses.replace(sharded.cfg.dist, n_devices=2))
+    probe = tsys.SLAM(cfg, device="cpu", devices=MESH_SLOTS)
+    assert probe.mesh is not None and probe.mesh.size == 2 and probe.mesh.local_devices == [torch.device("cpu")] * 2
+    sharded.cfg, sharded.mesh = cfg, probe.mesh
+
+    chunks, graphs = [], []
+    step = tsys.step_global_ba
+
+    def spy_step(pending, cam, **kw):
+        chunks.append(kw.get("mesh"))
+        return step(pending, cam, **kw)
+
+    sharded_pcg = tpg._gn_step_pcg_sharded
+
+    def spy_pcg(prob, S, damping, cg_iters, mesh, shards=None):
+        graphs.append(mesh)
+        return sharded_pcg(prob, S, damping, cg_iters, mesh, shards)
+
+    monkeypatch.setattr(tsys, "step_global_ba", spy_step)
+    monkeypatch.setattr(tpg, "_gn_step_pcg_sharded", spy_pcg)
+    walk(sharded)
+    assert len(chunks) == sum(cfg.loop.global_ba_phase_iters) and all(m is sharded.mesh for m in chunks)
+    assert len(graphs) == 20 and all(m is sharded.mesh for m in graphs)
+    chunks.clear()
+    walk(plain)
+    assert chunks and all(m is None for m in chunks)
+    assert_maps_agree(plain.map, sharded.map, point_m=POINT_M, pose_m=POSE_M, pose_deg=POSE_DEG)
+    np.testing.assert_allclose(sharded.last.Tcw.numpy(), plain.last.Tcw.numpy(), atol=POSE_M)
+
+
+def test_slam_with_two_devices_maps_a_sequence():
+    """``SLAM(cfg)`` with ``dist.n_devices=2`` over two CPU slots tracks
+    and maps the split test's world frame for frame as without a mesh (no
+    loop closes there: the mesh is built and carried)."""
+    from test_torch_split_mode import split_cfg
+
+    cfg = split_cfg(False, n_devices=2)
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=6, speed=0.55, device="cpu")
+    slam = tsys.SLAM(cfg, device="cpu", devices=MESH_SLOTS)
+    plain = tsys.SLAM(split_cfg(False), device="cpu")
+    assert slam.mesh.size == 2 and plain.mesh is None
+    for i in range(6):
+        img_l, img_r, _ = ds.frame(i)
+        pose, stats = slam.track(img_l, img_r)
+        assert pose is not None, (i, stats)
+        np.testing.assert_array_equal(pose, plain.track(img_l, img_r)[0])
+    slam.flush()
+    assert slam.n_keyframes >= 2
+
+
+def test_two_gloo_ranks_match_the_one_process_mesh(tmp_path):
+    C, P, K = 24, 203, 37
+    ranks = entry.run_ranks(2, "cpu", C, P, K, str(tmp_path), timeout=240, threads=2)
+    ref = entry.sharded_solves(ba_mesh(2, devices=MESH_SLOTS), C, P, K, "cpu")
+    assert np.abs(ref["pts"].numpy() - entry.gba_problem(C, P, device="cpu")[1].pt_pos.numpy()).max() > 1e-2
+    for rank, res in enumerate(ranks):
+        for name, want in ref.items():
+            assert torch.equal(res[name], want), (rank, name)
+
+
+def test_dryrun_multichip_2(capsys):
+    """``entry.dryrun_multichip(2)`` over two CPU slots, the counterpart of
+    ``tests/test_graft_entry.py::test_dryrun_multichip_2``: the three
+    ``dryrun i/3`` lines, the sharded solves within the one-shard solves'
+    tolerances of ``test_torch_sharded_solvers.py``, the split on both
+    slots."""
+    out = entry.dryrun_multichip(2, devices=MESH_SLOTS)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("dryrun")]
+    assert [ln[:11] for ln in lines] == ["dryrun 1/3:", "dryrun 2/3:", "dryrun 3/3:"]
+    assert out["gba_pose_diff_m"] <= 1e-4 and out["gba_rot_diff_deg"] <= 1e-3
+    assert out["gba_point_excess_m"] <= 0 and out["gba_gate_diff"] <= 2 and out["pg_diff"] <= 2e-3
+    assert out["split_keyframes"] >= 2 and out["gba_ms"] > 0 and out["pg_ms"] > 0

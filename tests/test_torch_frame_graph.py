@@ -71,7 +71,7 @@ def run(slam, frames):
 def runs(frames):
     direct = tsys.SLAM(grow_cfg(), enable_loop_closing=False, device="cpu")
     wrapped = tsys.SLAM(grow_cfg(), enable_loop_closing=False, device="cpu")
-    wrapped._frame_graphs = FrameGraphs(lambda *a, **kw: wrapped.frame_program(*a, **kw), capture=False)
+    wrapped._frame_graphs = FrameGraphs(lambda *a, **kw: wrapped._graph_frame_program(*a, **kw), capture=False)
     return dict(direct=run(direct, frames), wrapped=run(wrapped, frames), slams=(direct, wrapped))
 
 

@@ -33,6 +33,7 @@ from orb_slam2_ros2_tpu.solvers import global_ba as jgba
 from orb_slam2_ros2_tpu.solvers import pcg_ba as jpcg
 from orb_slam2_ros2_tpu_torch import convert
 from orb_slam2_ros2_tpu_torch.geometry import camera as tcam
+from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
 from orb_slam2_ros2_tpu_torch.solvers import global_ba as tgba
 from orb_slam2_ros2_tpu_torch.solvers import pcg_ba as tpcg
 
@@ -132,8 +133,10 @@ def test_global_ba_commits_like_jax(world):
     mt = tgba.global_ba(to_torch(world["map"]), world["cam_t"], **kw)
     assert_poses_close(mt.kf_Tcw.numpy(), mj.kf_Tcw)
     np.testing.assert_allclose(mt.mp_pos.numpy(), np.asarray(mj.mp_pos), atol=POINT_M, rtol=POINT_REL)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tgba.global_ba(to_torch(world["map"]), world["cam_t"], mesh=object())
+    # sharded over two CPU slots: the same commit within the same budget
+    ms = tgba.global_ba(to_torch(world["map"]), world["cam_t"], mesh=ba_mesh(2, devices=["cpu"] * 2), **kw)
+    assert_poses_close(ms.kf_Tcw.numpy(), mj.kf_Tcw)
+    np.testing.assert_allclose(ms.mp_pos.numpy(), np.asarray(mj.mp_pos), atol=POINT_M, rtol=POINT_REL)
 
 
 # ------------------------------------------------------- chunked + commit --
@@ -166,8 +169,14 @@ def test_start_step_commit_match_jax(world):
     assert_poses_close(ct.kf_Tcw.numpy(), cj.kf_Tcw)
     np.testing.assert_allclose(ct.mp_pos.numpy(), np.asarray(cj.mp_pos), atol=POINT_M, rtol=POINT_REL)
     assert pt.prob.cam_Tcw.data_ptr() != live.kf_Tcw.data_ptr()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tgba.step_global_ba(pt, world["cam_t"], mesh=object())
+    # a chunk over two CPU slots from the last iterate: the JAX chunk's
+    # result within the same budget
+    kw = dict(n_iters=1, pcg_iters=PCG_ITERS, robust_after=1)
+    sj = jgba.step_global_ba(pj, world["cam_j"], **kw)
+    st = tgba.step_global_ba(pt, world["cam_t"], mesh=ba_mesh(2, devices=["cpu"] * 2), **kw)
+    assert st.chunks_done == sj.chunks_done and st.shards is not None
+    assert_poses_close(st.Tcw.numpy(), sj.Tcw)
+    np.testing.assert_allclose(st.ptsT.numpy(), np.asarray(sj.ptsT), atol=POINT_M, rtol=POINT_REL)
 
 
 def test_commit_onto_grown_map_matches_jax(world):

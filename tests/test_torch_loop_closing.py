@@ -40,6 +40,7 @@ from orb_slam2_ros2_tpu_torch import convert
 from orb_slam2_ros2_tpu_torch.bow import vocabulary as tvoc
 from orb_slam2_ros2_tpu_torch.geometry import sim3 as tsim3
 from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams as TCam
+from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
 from orb_slam2_ros2_tpu_torch.pipeline import loop_closing as tlc
 from orb_slam2_ros2_tpu_torch.solvers.pose_graph import optimize_pose_graph as t_opg
 
@@ -526,9 +527,12 @@ def test_correct_matches_jax(ring):
                       torch.from_numpy(np.asarray(ring["matched"])), gt, run_gba=False)
     assert_maps_agree(outj, outt, point_m=5e-3, pose_m=1e-3)
     assert ct.last_loop_kf == cj.last_loop_kf == 11 and ct.consistent_groups == []
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ct.correct(ring["stt"], ring["cam_t"], 11, 0, t_sim3(ring["S12"]),
-                   torch.from_numpy(np.asarray(ring["matched"])), gt, mesh=object())
+    # over two CPU slots (the essential graph by the edge-sharded PCG): the
+    # JAX map within the same tolerances
+    outm = ct.correct(ring["stt"], ring["cam_t"], 11, 0, t_sim3(ring["S12"]),
+                      torch.from_numpy(np.asarray(ring["matched"])), gt, run_gba=False,
+                      mesh=ba_mesh(2, devices=["cpu"] * 2))
+    assert_maps_agree(outj, outm, point_m=5e-3, pose_m=1e-3)
 
 
 def test_detection_rows_match_jax(ring):

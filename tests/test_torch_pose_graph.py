@@ -156,6 +156,14 @@ def test_pcg_route_freezes_at_the_cg_tolerance():
 
 
 def test_sharded_pose_graph_refuses():
+    """A mesh no longer raises: the drift chain over two CPU slots lands
+    within the solve budget of the unsharded PCG; only a mesh whose axis is
+    not ``mesh_axis`` is refused."""
+    from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
+
     prob, _, _ = drift_chain(K=6)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpg.optimize_pose_graph(to_t(prob), mesh=object())
+    tp, mesh = to_t(prob), ba_mesh(2, devices=["cpu"] * 2)
+    np.testing.assert_allclose(se3_of(tpg.optimize_pose_graph(tp, mesh=mesh)),
+                               se3_of(tpg.optimize_pose_graph(tp, dense_max_k=0)), atol=2e-3)
+    with pytest.raises(ValueError, match="axis"):
+        tpg.optimize_pose_graph(tp, mesh=mesh, mesh_axis="other")

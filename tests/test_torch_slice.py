@@ -94,11 +94,15 @@ def test_map_and_counters_agree(runs):
 
 @pytest.mark.parametrize("refused", ["rgbd", "pipelined", "split", "n_devices", "mapping"])
 def test_unported_modes_are_refused(refused):
-    """RGB-D, mapping with loop closing and the pipelined loop are ported:
-    alone each constructs, and it lifts none of the other refusals (here the
-    tracker/mapper split)."""
+    """Every mode is ported: RGB-D, the pipelined loop, mapping with loop
+    closing, the tracker/mapper split and a BA mesh each construct, also
+    together with the split over two CPU devices; what is refused is what
+    the JAX system refuses — the split with one device (every case) and the
+    split together with a BA mesh — and the split turns the pipelined loop
+    off."""
     cfg = small_cfg(tcfg)
     kw = {}
+    two = ("cpu", "cpu")
 
     def split(c):
         return c.replace(dist=dataclasses.replace(c.dist, tracker_mapper_split=True))
@@ -106,21 +110,25 @@ def test_unported_modes_are_refused(refused):
     if refused == "rgbd":
         kw["rgbd"] = True
         assert TSLAM(cfg, device="cpu", **kw).rgbd
-        cfg = split(cfg)
+        assert TSLAM(split(cfg), devices=two, **kw).rgbd
     elif refused == "pipelined":
         cfg = small_cfg(tcfg, pipelined=True)
         assert TSLAM(cfg, device="cpu")._pipelined
-        cfg = split(cfg)
+        assert not TSLAM(split(cfg), devices=two)._pipelined
     elif refused == "split":
-        cfg = split(cfg)
+        slam = TSLAM(split(cfg), devices=two)
+        assert slam._split and slam.mesh is None and slam._view is not None
     elif refused == "n_devices":
         cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, n_devices=2))
+        assert TSLAM(cfg, device="cpu", devices=two).mesh.size == 2
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            TSLAM(split(cfg), devices=two)
     else:
         cfg = small_cfg(tcfg, only_tracking=False)
         assert TSLAM(cfg, device="cpu").enable_loop_closing
-        cfg = split(cfg)
-    with pytest.raises(NotImplementedError):
-        TSLAM(cfg, device="cpu", **kw)
+        assert TSLAM(split(cfg), devices=two).enable_loop_closing
+    with pytest.raises(ValueError, match="≥2 devices"):
+        TSLAM(split(cfg), devices=("cpu",), **kw)
 
 
 def test_initialization_seeds_like_jax(frames):
