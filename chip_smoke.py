@@ -137,6 +137,33 @@ Phases (one line each; any failure raises and exits non-zero):
         a's problems: each rank's result against the one-process 2-shard
         mesh's (bit-equality printed; the CPU tests' tolerances gated).
 
+ 14. long runs (the default ``SLAMConfig()``): (a) the adversarial multi-lap
+     world of ``validation.py`` (``AdversarialStereoDataset``: depthless
+     sky, moving distractors, exposure flicker, a repeated-texture wall;
+     400 frames, 150 a lap) through ``validation.run_sequence``: every frame
+     posed, live ATE under 5% and final ATE under 3% of the path, at least
+     one closure and every closure true (its revisit within 3 m; one made
+     in the final ``flush()`` has no frame to check and is counted apart), then
+     ``validation.reloc_success`` (12 kidnappings, seed 3) right at least 6
+     times; printed: loop precision and recall, the post-closure laps
+     localized, keyframes, the closures' frames, the frame-level loop
+     queries dispatched (counted by wrapping the SLAM's method; why none,
+     if none), weak-frame recoveries, frame ms (median, p90) and the spike
+     ratio, the ``correct`` / ``optimize_essential`` / ``gba_chunk`` spans
+     and peak device memory; (b) the same frames with
+     ``tracking.pipelined``: every frame in order in the trajectory and
+     (a)'s ATE and closure gates, keyframes and wall time beside (a)'s;
+     (c) ``scale_run``'s configuration (a keyframe every ~3rd frame, stores
+     starting at 160 keyframes and 32,768 points) on 720 frames of its
+     world at 360 a lap, on a 15 m circle that stays in the world's box (the
+     reference's 30 m circle leaves it): the keyframe store doubled past 256
+     slots, every frame tracked, a closure on the second lap, a frame graph
+     re-captured on the first frame program after each capacity change and
+     at no other time, and the first replay after each re-capture bit-equal
+     to the eager program on the same inputs (outputs and map); printed:
+     the grow events with the ms of the grow, re-capture and first-replay
+     calls, the fps curve, map MB and peak device memory.
+
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
 ``launches``, summed over the main-path runs of every phase, is its
@@ -237,6 +264,18 @@ MULTI_DEVICES = ["cuda:0", "cuda:0"]
 SPLIT_POSE_ATOL = 5e-4   # tests/test_split_mode.py:73
 RANKS_TIMEOUT_S = 300.0
 ESSENTIAL_ITERS = 20     # GN steps of the essential graph (LoopCloser.correct)
+# long-run phase: the adversarial multi-lap world of validation.py (400
+# frames, 150 a lap) and the scale run of scale_run.py on a circle inside
+# its box
+ADV_FRAMES = 400
+ADV_LAP = 150
+KIDNAP_ATTEMPTS = 12
+KIDNAP_SEED = 3
+MIN_KIDNAP_OK = 6        # tests/test_adversarial.py:132: at least half
+MAX_CLOSURE_REVISIT_M = 3.0
+SCALE_FRAMES = 720
+SCALE_LAP = 360
+SCALE_RADIUS = 15.0      # the reference's 30 m leaves the box (scale_run.scale_dataset)
 
 
 def gpu_line() -> str:
@@ -481,7 +520,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/13] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/14] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -495,7 +534,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/13", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/14", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -624,7 +663,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/13] {json.dumps(rec)}", flush=True)
+        print(f"[7/14] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -693,7 +732,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/13] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/14] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -718,7 +757,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/13", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/14", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -944,8 +983,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/13")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/13")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/14")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/14")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1181,7 +1220,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/13] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/14] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1199,12 +1238,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/13] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/14] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/13] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/14] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1222,30 +1261,37 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/13] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/14] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
 # ------------------------------------------------------------ multi-device --
 
 class _Spy:
-    """Counts the calls of ``module.name`` that ``pred(*args, **kw)`` picks,
-    while it is active."""
+    """Counts, while it is active, the calls of ``obj.name`` (a module's
+    function or an instance's method) that ``pred(*args, **kw)`` picks
+    (every call when ``pred`` is None), and in ``true`` the calls that
+    returned something true."""
 
-    def __init__(self, module, name, pred):
-        self.module, self.name, self.pred, self.calls = module, name, pred, 0
-        self.orig = getattr(module, name)
+    def __init__(self, obj, name, pred=None):
+        self.obj, self.name, self.pred, self.calls, self.true = obj, name, pred, 0, 0
+        self.orig, self.own = getattr(obj, name), name in vars(obj)
 
     def __enter__(self):
         def spy(*a, **kw):
-            self.calls += bool(self.pred(*a, **kw))
-            return self.orig(*a, **kw)
+            self.calls += self.pred is None or bool(self.pred(*a, **kw))
+            out = self.orig(*a, **kw)
+            self.true += bool(out)
+            return out
 
-        setattr(self.module, self.name, spy)
+        setattr(self.obj, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
+        if self.own:
+            setattr(self.obj, self.name, self.orig)
+        else:
+            delattr(self.obj, self.name)
 
 
 def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summary: dict, map_poses: list):
@@ -1265,7 +1311,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/13] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/14] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1274,7 +1320,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/13", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/14", devices=MULTI_DEVICES)
     spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
              for k in ("optimize_essential", "gba_chunk")}
     b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
@@ -1282,7 +1328,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/13] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/14] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
@@ -1295,7 +1341,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/13", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/14", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
@@ -1307,7 +1353,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/13] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/14] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1330,10 +1376,325 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/13] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/14] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     return (loop_launches, split_launches), out
+
+
+# --------------------------------------------------------------- long runs --
+
+class _Frames:
+    """A dataset's first ``n`` frames rendered once (set-up), served by
+    ``frame(i)``."""
+
+    def __init__(self, ds, n: int):
+        self.frames = [ds.frame(i) for i in range(n)]
+
+    def frame(self, i: int):
+        return self.frames[i]
+
+
+def _tracker(slam: SLAM, tag: str, records: list):
+    """``track(img_l, img_r)`` through ``_track`` (each kernel once a frame
+    program, call PROFILED_CALL traced), frame programs from call 2 on under
+    sync debug "error"; each call appends its record: ms, whether it
+    inserted a keyframe or closed a loop (and whether a GBA was in flight
+    then), the programs and stages it ran, its frame-graph replays and
+    captures, its inliers and whether it fell back to the reference
+    keyframe."""
+    def track(img_a, img_b):
+        i = len(records)
+        n_events, loops, n_kf = len(slam.program_events), slam.loops_closed, slam._n_kf
+        gba_pending = slam._pending_gba is not None
+        (r0, c0) = _graph_counts(slam)
+        slam.frame_sync_debug_mode = "error" if i >= 2 else None
+        pose, stats, ms = _track(slam, f"{tag} {i}", img_a, img_b, profile=i == PROFILED_CALL)
+        r1, c1 = _graph_counts(slam)
+        records.append(dict(call=i, ms=ms, profiled=i == PROFILED_CALL, keyframe=slam._n_kf > n_kf,
+                            closure=slam.loops_closed > loops, replays=r1 - r0, captures=c1 - c0,
+                            stages=sorted({name for name, _, _ in slam.program_events[n_events:]}),
+                            gba_pending=gba_pending, since_kf=slam.frames_since_kf, state=slam.state.name,
+                            n_inliers=stats.get("n_inliers"), ref_fallback=bool(stats.get("ref_fallback")),
+                            relocalized=bool(stats.get("relocalized"))))
+        return pose, stats
+    return track
+
+
+def _ms_stats(records, closures=()) -> dict:
+    """Median and p90 of the calls' ms from call 10 on (the traced call left
+    out), and the largest call from the first closure on over that median."""
+    ms = [r["ms"] for r in records[10:] if not r["profiled"]]
+    med = statistics.median(ms)
+    after = [r["ms"] for r in records[closures[0]:]] if closures else []
+    return dict(median_ms=med, p90_ms=float(np.percentile(ms, 90)), max_ms=max(r["ms"] for r in records),
+                max_after_closure_ms=max(after) if after else None,
+                spike_ratio=max(after) / med if after else None)
+
+
+def _after_closures(records) -> list:
+    """Each closure's call, whether it found a GBA in flight (which it
+    discards), and the inliers of the two calls after it (the motion model
+    restarts from the identity after a synchronous correction)."""
+    return [dict(call=r["call"], gba_in_flight=r["gba_pending"],
+                 next_inliers=[x["n_inliers"] for x in records[r["call"] + 1:r["call"] + 3]],
+                 next_fallbacks=sum(x["ref_fallback"] for x in records[r["call"] + 1:r["call"] + 3]))
+            for r in records if r["closure"]]
+
+
+def _closure_truth(closures, gt, lap: int) -> list:
+    """(closure frame, revisit distance in m) a closure: the ground-truth
+    distance to the previous lap's pose at the same lap angle (None before
+    any revisit: a false closure)."""
+    out = []
+    for i in closures:
+        j = i - lap
+        out.append((i, float(np.linalg.norm(gt[i][:3, 3] - gt[j][:3, 3])) if j >= 0 else None))
+    return out
+
+
+def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, kidnap: bool):
+    """The adversarial multi-lap world (``validation.py``'s defaults: 400
+    frames, 150 a lap) through ``validation.run_sequence``, synchronous or
+    pipelined: every frame posed (in order, pipelined), live ATE under 5%
+    and final ATE under 3% of the path, at least one closure during the
+    frames and every such closure true (its revisit within 3 m; closures
+    made in the final ``flush()`` are counted apart); with ``kidnap`` then
+    ``validation.reloc_success`` (12 attempts, seed 3) at least 6 right.
+    Frame-level loop queries and weak-frame recoveries are counted by
+    wrapping the SLAM's methods.  Returns (launch counts, summary)."""
+    from orb_slam2_ros2_tpu_torch import validation
+
+    pipelined = cfg.tracking.pipelined
+    slam = SLAM(cfg, device="cuda")
+    slam.time_programs = True
+    records: list = []
+    track = _tracker(slam, tag, records)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _Spy(slam, "_dispatch_frame_loop_query") as queries, _Spy(slam, "_track_reference") as recoveries:
+        est, gt, closures, lost = validation.run_sequence(slam, frames, n_frames, track=track)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    # a closure made in the final flush() has no frame whose revisit the
+    # truth gate could check: it is counted apart and gates nothing
+    flush_closures = slam.loops_closed - len(closures)
+    fids = [f for f, _ in slam.trajectory]
+    if fids != list(range(n_frames)):
+        raise AssertionError(f"{tag}: the trajectory holds frames {fids[:5]}…{fids[-5:]} ({len(fids)})")
+    if pipelined:
+        # a call returns the previous frame's pose (the fill marker on call 1)
+        est = [np.linalg.inv(T.astype(np.float64)) for _, T in slam.trajectory]
+        lost = sum(1 for r in records if r["state"] != "OK")
+    if lost:
+        raise AssertionError(f"{tag}: {lost} frames returned no pose")
+    path = float(sum(np.linalg.norm(gt[k + 1][:3, 3] - gt[k][:3, 3]) for k in range(n_frames - 1)))
+    ate_live, ate_final = validation.ate_of(est, gt), validation.ate_final_of(slam, gt)
+    prec, rec, n_acc, tp, n_opp, laps_hit, n_post, n_loc = validation.loop_precision_recall(
+        slam, est, gt, closures, ADV_LAP, n_frames)
+    spans = _span_ms(slam)
+    summary = dict(
+        frames=n_frames, pipelined=pipelined, wall_s=wall_s, keyframes_inserted=slam._n_kf,
+        keyframes_live=slam.n_keyframes, n_mappoints=slam.n_mappoints,
+        closures=_closure_truth(closures, gt, ADV_LAP), flush_closures=flush_closures,
+        loops_closed=slam.loops_closed,
+        after_closures=_after_closures(records[:n_frames]),
+        loop_precision=prec, loop_recall=rec, closure_opportunity_laps=n_opp, laps_with_true_closure=laps_hit,
+        post_closure_laps=n_post, post_closure_laps_localized=n_loc,
+        ate_live_m=ate_live, ate_final_m=ate_final, path_len_m=path,
+        frame_loop_queries=queries.calls, weak_frame_recoveries=recoveries.calls,
+        weak_frame_recoveries_ok=recoveries.true, max_frames_since_kf=max(r["since_kf"] for r in records),
+        frame_graph_captures=_captures(slam), **_ms_stats(records, closures),
+        span_ms={k: [round(x, 3) for x in spans[k]] for k in ("correct", "optimize_essential", "gba_chunk",
+                                                                "gba_commit") if k in spans},
+        keyframe_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v))
+                          for k, v in spans.items() if k in ("map_front", "map_tail", "cull_kfs", "loop_detect")},
+        peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+    )
+    if queries.calls == 0:
+        t = cfg.tracking
+        summary["frame_loop_queries_why_none"] = (
+            f"frames since a keyframe peaked at {summary['max_frames_since_kf']} (the queries need more than "
+            f"max_frames {t.max_frames}, on every {cfg.loop.frame_query_stride}-th frame, "
+            f"{10 * t.max_frames} frames clear of a closure)")
+    if kidnap:
+        rate, n_att = validation.reloc_success(slam, frames, ADV_LAP, n_frames, est, KIDNAP_ATTEMPTS,
+                                               KIDNAP_SEED, track=track)
+        summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
+                       kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
+    launches = _launches()
+    print(f"[14/14] {tag}: {json.dumps(summary)}", flush=True)
+    if not ate_live < MAX_ATE_LIVE * path:
+        raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
+    if not ate_final < MAX_ATE_FINAL * path:
+        raise AssertionError(f"{tag}: final ATE {ate_final:.4f} m ≥ {MAX_ATE_FINAL} × {path:.2f} m")
+    false = [c for c in summary["closures"] if c[1] is None or c[1] >= MAX_CLOSURE_REVISIT_M]
+    if not closures or false:
+        raise AssertionError(f"{tag}: closures {summary['closures']} (none, or false ones: {false})")
+    if kidnap and summary["kidnap_ok"] < MIN_KIDNAP_OK:
+        raise AssertionError(f"{tag}: kidnapping relocalized at the right place {summary['kidnap_ok']} of "
+                             f"{n_att} < {MIN_KIDNAP_OK}")
+    return launches, summary
+
+
+def _eager_twin(slam: SLAM, img_a, img_b):
+    """The frame program run eagerly on the inputs the next ``track`` call
+    hands its graph, over a copy of the map (its kernel launches are taken
+    back out of the wrappers' counts: they compare, they are not the main
+    path's), and a spy that keeps the graph's outputs and the map right
+    after that call's frame program.  Returns (eager leaves, eager map,
+    what the spy saw)."""
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState, kf_index
+    from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_leaves
+
+    proj_th = 5.0 if slam.frame_id < slam.last_reloc_fid + 2 else 3.0
+    counts = (fast.fast_nms_launches, patches.patch_launches)
+    mapstate = MapState(*(t.clone() for t in slam.map))
+    new_state, velocity, host_vec, mapstate, local = slam.frame_program(
+        img_a, img_b, slam.last, slam.velocity, slam.local, mapstate, kf_index(slam.ref_kf, slam.device),
+        proj_th=proj_th)
+    fast.fast_nms_launches, patches.patch_launches = counts
+    seen: dict = {}
+    run_frame = slam._run_frame
+
+    def spy(*args):
+        out = run_frame(*args)
+        if not seen:
+            seen.update(leaves=tree_leaves(out), map=[t.clone() for t in slam.map])
+            del slam._run_frame
+        return out
+
+    slam._run_frame = spy
+    return tree_leaves((new_state, velocity, host_vec, local)), list(mapstate), seen
+
+
+def run_scale(base: SLAMConfig):
+    """``scale_run``'s configuration (keyframes every ~3rd frame, stores
+    starting at 160 keyframes and 32,768 points, auto-grow) on SCALE_FRAMES
+    frames of its world at SCALE_LAP a lap on a circle of SCALE_RADIUS
+    inside the box.  Gates: the keyframe store doubled, past 256 slots (the
+    PCG essential graph), every frame tracked, a closure on the second lap;
+    a frame graph captured only at the first use of its threshold after a
+    capacity change, and re-captured on the first frame program after each;
+    the first replay after each re-capture bit-equal to the eager program
+    on the same inputs (a re-capture followed by another capacity change
+    before its first replay has none).  Returns (launch counts, summary)."""
+    from orb_slam2_ros2_tpu_torch import scale_run
+
+    cfg = scale_run.scale_config(base)
+    ds = scale_run.scale_dataset(cfg, SCALE_FRAMES, SCALE_LAP, "cuda", SCALE_RADIUS)
+    slam = SLAM(cfg, device="cuda")
+    slam.time_programs = True
+    graphs = slam._frame_graphs
+    records: list = []
+    inner = _tracker(slam, "c", records)
+    st = dict(keys=set(), must_capture=False, compare=False, twin=None, compared=[], bad=[])
+
+    def track(img_a, img_b):
+        i = len(records)
+        cap0 = (slam.map.kf_capacity, slam.map.mp_capacity)
+        twin = (_eager_twin(slam, img_a, img_b)
+                if st["compare"] and not st["must_capture"] and slam.state == TrackState.OK else None)
+        pose, stats = inner(img_a, img_b)
+        slam.__dict__.pop("_run_frame", None)   # the twin's spy, if no frame program ran
+        rec = records[-1]
+        rec["cap"] = [slam.map.kf_capacity, slam.map.mp_capacity]
+        if rec["captures"]:
+            key = graphs.capture_log[-1][0]
+            if key in st["keys"]:
+                st["bad"].append(f"call {i}: graph {key} captured again without a capacity change")
+            st["keys"].add(key)
+        if st["must_capture"] and (rec["replays"] or rec["captures"]):
+            if not rec["captures"]:
+                st["bad"].append(f"call {i}: the first frame program after a capacity change replayed")
+            st["must_capture"], st["compare"] = False, True
+        elif twin is not None:
+            leaves, mapstate, seen = twin
+            if not seen or rec["captures"]:
+                st["bad"].append(f"call {i}: no replay to compare")
+            else:
+                diff = [k for k, (a, b) in enumerate(zip(leaves, seen["leaves"])) if not torch.equal(a, b)]
+                fields = [n for n, a, b in zip(slam.map._fields, mapstate, seen["map"]) if not torch.equal(a, b)]
+                st["compared"].append(dict(call=i, outputs=len(leaves), outputs_differ=diff, map_differs=fields))
+                if diff or fields:
+                    st["bad"].append(f"call {i}: replay differs from eager: outputs {diff}, map {fields}")
+            st["compare"] = False
+        if tuple(rec["cap"]) != cap0:
+            st["keys"], st["must_capture"] = set(), True
+        return pose, stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = scale_run.run(slam, ds, SCALE_FRAMES, track=track)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    for g in res["grow"]:
+        f = g["frame"]
+        g.update(grow_call_ms=records[f]["ms"], next_call_ms=records[f + 1]["ms"] if f + 1 < len(records) else None,
+                 next_call_captures=records[f + 1]["captures"] if f + 1 < len(records) else None,
+                 third_call_ms=records[f + 2]["ms"] if f + 2 < len(records) else None)
+    closures = [r["call"] for r in records if r["closure"]]
+    kf_doublings = [g for g in res["grow"] if g["to"][0] == 2 * g["frm"][0]]
+    mp_doublings = [g for g in res["grow"] if g["to"][1] == 2 * g["frm"][1]]
+    spans = _span_ms(slam)
+    summary = dict(
+        res, wall_s=wall_s, lap=SCALE_LAP, radius_m=SCALE_RADIUS, closure_calls=closures,
+        after_closures=_after_closures(records),
+        kf_doublings=len(kf_doublings), mp_doublings=len(mp_doublings),
+        captures=graphs.captures, capture_log=graphs.capture_log, replay_vs_eager=st["compared"],
+        **_ms_stats(records, closures),
+        keyframe_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v))
+                          for k, v in spans.items()},
+        peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+    )
+    print(f"[14/14] c. scale run: {json.dumps(summary)}", flush=True)
+    problems = list(st["bad"])
+    if not kf_doublings or not res["pcg_essential_in_system"]:
+        problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
+                        f"no doubling past 256 slots")
+    if res["lost"]:
+        problems.append(f"{res['lost']} frames lost")
+    if not any(c >= SCALE_LAP for c in closures):
+        problems.append(f"no closure on the second lap (closures at calls {closures})")
+    if kf_doublings and not any(c["call"] > kf_doublings[0]["frame"] for c in st["compared"]):
+        problems.append(f"no replay compared with eager after the keyframe store doubled: {st['compared']}")
+    if problems:
+        raise AssertionError(f"scale run: {problems}")
+    return launches, summary
+
+
+def run_long(base: SLAMConfig) -> list:
+    """Phase 14: the adversarial world synchronous (a) and pipelined (b),
+    then the scale run (c).  Returns the three runs' launch counts."""
+    from orb_slam2_ros2_tpu_torch.io.synthetic import AdversarialStereoDataset
+
+    t0 = time.perf_counter()
+    ds = AdversarialStereoDataset(base.camera, n_frames=ADV_FRAMES, frames_per_lap=ADV_LAP, device="cuda")
+    frames = _Frames(ds, ADV_FRAMES)   # rendered on the card, set-up
+    render_s = time.perf_counter() - t0
+    a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
+    pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
+    b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
+    print(f"[14/14] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+          f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
+          f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
+          f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
+          f"{b['weak_frame_recoveries']}, ATE live {a['ate_live_m']:.4f} / {b['ate_live_m']:.4f} m final "
+          f"{a['ate_final_m']:.4f} / {b['ate_final_m']:.4f} m on {a['path_len_m']:.2f} m, launches "
+          f"{a_launches} / {b_launches}", flush=True)
+    del frames
+    c_launches, c = run_scale(base)
+    print(f"[14/14] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+          f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
+          f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
+          f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
+          f"{c['peak_mem_mib']:.1f} MiB, {c['wall_s']:.1f} s, launches {c_launches}", flush=True)
+    return [a_launches, b_launches, c_launches]
 
 
 def _frame_ms(records, keyframe=None):
@@ -1348,12 +1709,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/13] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/14] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/13] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/14] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -1369,21 +1730,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/13] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/14] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/13] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/14] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/13] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/14] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/13] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/14] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -1392,7 +1753,7 @@ def main() -> int:
     map_summary.update(frame_ms_keyframe=_frame_ms(map_records, True), frame_ms_other=_frame_ms(map_records, False))
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/13] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/14] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -1400,15 +1761,15 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/13] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/14] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/13] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/14] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     _, loop_launches, loop = run_loop(base)
-    print(f"[9/13] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/14] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -1428,7 +1789,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/13] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/14] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -1439,7 +1800,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/13] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/14] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -1448,23 +1809,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/13] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/14] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/13] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/14] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/13] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/14] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/13")
-    print(f"[11/13] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/14")
+    print(f"[11/14] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -1475,28 +1836,31 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/13] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/13] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/14] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/14] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/13] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/14] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/13] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/14] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
+    print(f"[13/14] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    long_launches = run_long(base)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
-                     blackout_launches, *shell_launches, *multi_launches)
+                     blackout_launches, *shell_launches, *multi_launches, *long_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

@@ -48,7 +48,8 @@ def _build_cfg(args, width: int, height: int) -> SLAMConfig:
     if args.distributed:
         from .parallel.mesh import init_distributed
 
-        pid = init_distributed()
+        # gloo for a CPU run, whether or not the machine has a card
+        pid = init_distributed(backend="gloo" if torch.device(args.device).type == "cpu" else None)
         print(f"[distributed] process {pid}", file=sys.stderr)
     if args.ba_devices > 1:
         cfg = cfg.replace(dist=type(cfg.dist)(n_devices=args.ba_devices, mesh_axis=cfg.dist.mesh_axis))

@@ -5,18 +5,21 @@ The package carries its own copy of the decoder, ``csrc/dataloader.cpp``: a
 multithreaded in-order prefetch ring of libpng decodes that keeps image
 decoding off the tracker's path.  On first use it is compiled with g++ into
 ``build/native/`` at the repository root (git-ignored), named by a hash of
-the source and flags so an edited source rebuilds, as ``ops/_build.py``
-builds the CUDA kernels.  Where g++ or the libpng headers are missing,
-or the built library cannot be loaded, ``get_lib()`` returns None
-(``build_error`` says why) and the dataset readers
-decode with Pillow, the JAX package's order.
+the source, the flags, the machine and the libpng this host links, so an
+edited source rebuilds, as ``ops/_build.py`` builds the CUDA kernels, and a
+copy built on another host is rebuilt here instead of loaded.  Where g++
+or the libpng headers are missing, or the built library cannot be loaded,
+``get_lib()`` returns None (``build_error`` says why) and the dataset
+readers decode with Pillow, the JAX package's order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -37,7 +40,8 @@ build_error: Optional[str] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS + LIBS).encode()).hexdigest()[:12]
+    host = f"{platform.machine()} {ctypes.util.find_library('png')}"
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS + LIBS + (host,)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libslamio_{digest}.so"
 
 

@@ -80,6 +80,18 @@ def local_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
     return [torch.device("cpu")]
 
 
+def default_devices(device, n: int) -> List[torch.device]:
+    """The devices a SLAM on ``device`` spreads over when its caller names
+    none: every visible CUDA device for a CUDA ``device``; for a CPU
+    ``device``, CPU slots enough for this process's share of ``n`` slots (a
+    card on the machine is not used unless asked for)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return local_devices()
+    _, world = _world()
+    return [device] * max(1, -(-n // world))
+
+
 def _global_slots(devices: Optional[Sequence] = None) -> List[Tuple[int, torch.device]]:
     """Every process's local devices, in rank order."""
     rank, world = _world()

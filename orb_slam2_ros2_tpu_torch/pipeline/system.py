@@ -84,7 +84,7 @@ from ..mapstate.local_map import (
     local_map_snapshot_frame,
 )
 from ..mapstate.map_state import MapState, empty_map, grow_map, insert_keyframe, kf_index
-from ..parallel.mesh import ba_mesh, local_devices
+from ..parallel.mesh import ba_mesh, default_devices, local_devices
 from ..mapstate.mapping import (
     cull_keyframes,
     cull_mappoints,
@@ -518,10 +518,11 @@ class SLAM:
 
     ``device`` runs everything; with ``cfg.dist.n_devices > 1`` the loop
     closer's essential graph and the GBA shard over ``self.mesh``, the first
-    ``n_devices`` of ``devices`` (default: every visible CUDA device, or the
-    CPU); with ``cfg.dist.tracker_mapper_split`` the first two of
-    ``devices`` are the tracker's (``self.device``) and the map's
-    (``self.map_device``), and ``device`` is not used."""
+    ``n_devices`` of ``devices``; with ``cfg.dist.tracker_mapper_split`` the
+    first two of ``devices`` are the tracker's (``self.device``) and the
+    map's (``self.map_device``).  ``devices`` defaults to what ``device``
+    names (``parallel.mesh.default_devices``): every visible CUDA device for
+    a CUDA ``device``, CPU slots for the CPU."""
 
     def __init__(self, cfg: SLAMConfig, rgbd: bool = False,
                  enable_loop_closing: bool = True, *, device="cuda", devices=None):
@@ -529,11 +530,13 @@ class SLAM:
         # localization mode never closes loops
         self.enable_loop_closing = enable_loop_closing and not cfg.tracking.only_tracking
         self.rgbd = rgbd
+        self._split = bool(cfg.dist.tracker_mapper_split)
+        if devices is None:
+            devices = default_devices(device, max(cfg.dist.n_devices, 2 if self._split else 1))
         # the sharded essential graph and GBA (SURVEY §5.8); one device pays
         # no collective
         self.mesh = (ba_mesh(cfg.dist.n_devices, axis=cfg.dist.mesh_axis, devices=devices)
                      if cfg.dist.n_devices > 1 else None)
-        self._split = bool(cfg.dist.tracker_mapper_split)
         map_device = device
         if self._split:
             devs = local_devices(devices)

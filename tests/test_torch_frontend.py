@@ -118,7 +118,7 @@ def test_import_leaves_jax_out():
         "        'solvers.epnp', 'solvers.sim3_solver', 'io.persistence', 'pipeline.loop_closing',\n"
         "        'solvers.pose_graph', 'solvers.pcg_ba', 'solvers.global_ba', 'cli', 'io.datasets',\n"
         "        'io.native_loader', 'io.proto_map', 'io.txt_map', 'proto', 'viewer', 'viz',\n"
-        "        'ros2_bridge']\n"
+        "        'ros2_bridge', 'validation', 'scale_run']\n"
         "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'orb_slam2_ros2_tpu.'))"

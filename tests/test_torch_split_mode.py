@@ -113,3 +113,20 @@ def test_split_refusals_and_pipelined_off():
     cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=True))
     assert not SLAM(cfg, devices=SPLIT)._pipelined
     assert SLAM(split_cfg(False).replace(tracking=cfg.tracking), device="cpu")._pipelined
+
+
+@pytest.mark.parametrize("kind", ["mesh", "split"])
+def test_default_devices_follow_device(monkeypatch, kind):
+    """With no ``devices``, a ``SLAM(device="cpu")`` takes its mesh slots and
+    its split roles from the CPU even where a card exists (here two that
+    ``torch.cuda`` only pretends to have: no CUDA tensor is made)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cfg = split_cfg(False, n_devices=2) if kind == "mesh" else split_cfg(True)
+    slam = SLAM(cfg, device="cpu")
+    cpu = torch.device("cpu")
+    assert (slam.device, slam.map_device) == (cpu, cpu)
+    if kind == "mesh":
+        assert [d for _, d in slam.mesh.slots] == [cpu, cpu]
+    else:
+        assert slam.mesh is None and slam._split
