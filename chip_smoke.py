@@ -163,6 +163,31 @@ Phases (one line each; any failure raises and exits non-zero):
      to the eager program on the same inputs (outputs and map); printed:
      the grow events with the ms of the grow, re-capture and first-replay
      calls, the fps curve, map MB and peak device memory.
+ 15. the remaining surface (the default ``SLAMConfig()``): (a) the one-image
+     extractor (``make_extractor``) on one rendered frame: K1 and K2 once,
+     its output bit-equal to the same call with the plain twins swapped in
+     (by ``_Spy``), and ``fast_score_dispatch`` / ``fast_score_nms_dispatch``
+     bit-equal to ``fast_score`` / ``nms3(fast_score)`` on that image; (b)
+     ``OdometryTracker`` over 30 frames of the forward world at 0.35 m/frame
+     (every frame tracked, ATE under 5% of the path), then the fused
+     odometry step eagerly and replayed from its CUDA graph in turns,
+     bit-equal, both under ``set_sync_debug_mode("error")``; the graph's
+     nodes (its ``debug_dump``) hold K1 and K2 once each, and one replay is
+     traced (its kernel records printed); (c) ``solve_ba`` on a local-BA-sized
+     grid problem made on the card from a seeded generator (16 cameras, 2
+     fixed, 512 stereo slots each, 4096 point slots, 2048 points seen by 4
+     cameras each, 5% outliers): the robust
+     cost falls and the clean edges' median χ² falls tenfold, the fixed
+     cameras keep their bits, no host
+     synchronisation, and the CPU copy agrees within 1e-4 m / 1e-3°, 1e-3 m
+     on the points that keep an inlier edge, and equal gates; ms and peak
+     memory; (d)
+     ``train_corpus_vocab.main`` at the full image size on 4 frame pairs of
+     each of its five worlds with the tree cut to depth 2, K1 over the
+     four-image table and one batch's descriptors held to the plain twins;
+     (e) ``SLAM.profile`` over phase 6's first 10 frames: ``stage_times``
+     holds ``frontend``, ``track``, ``map_front`` and ``map_tail`` with a
+     positive time each run.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -174,9 +199,11 @@ replays the profiler saw.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -276,6 +303,14 @@ MAX_CLOSURE_REVISIT_M = 3.0
 SCALE_FRAMES = 720
 SCALE_LAP = 360
 SCALE_RADIUS = 15.0      # the reference's 30 m leaves the box (scale_run.scale_dataset)
+# the remaining surface (phase 15)
+ODO_FRAMES = 30          # odometry frames (tests/test_odometry_e2e.py)
+SBA_CAMS, SBA_FIXED, SBA_SLOTS, SBA_POINTS = 16, 2, 512, 4096   # local-BA size
+SBA_VIEWS = 4            # cameras observing each observed point
+SBA_OUTLIERS = 0.05
+CORPUS_PAIRS = 4         # frame pairs a world (the packaged corpus: every pair)
+CORPUS_DEPTH = 2         # tree depth (the packaged vocabulary: 5)
+PROFILE_FRAMES = 10
 
 
 def gpu_line() -> str:
@@ -520,7 +555,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/14] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/15] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -534,7 +569,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/14", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/15", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -663,7 +698,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/14] {json.dumps(rec)}", flush=True)
+        print(f"[7/15] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -732,7 +767,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/14] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/15] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -757,7 +792,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/14", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/15", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -983,8 +1018,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/14")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/14")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/15")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/15")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1220,7 +1255,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/14] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/15] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1238,12 +1273,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/14] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/15] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/14] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/15] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1261,7 +1296,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/14] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/15] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1271,17 +1306,19 @@ class _Spy:
     """Counts, while it is active, the calls of ``obj.name`` (a module's
     function or an instance's method) that ``pred(*args, **kw)`` picks
     (every call when ``pred`` is None), and in ``true`` the calls that
-    returned something true."""
+    returned something true (a tensor counts as true).  With ``replace`` the calls go to it instead
+    (phase 15 swaps in the kernels' plain twins)."""
 
-    def __init__(self, obj, name, pred=None):
+    def __init__(self, obj, name, pred=None, replace=None):
         self.obj, self.name, self.pred, self.calls, self.true = obj, name, pred, 0, 0
         self.orig, self.own = getattr(obj, name), name in vars(obj)
+        self.target = replace or self.orig
 
     def __enter__(self):
         def spy(*a, **kw):
             self.calls += self.pred is None or bool(self.pred(*a, **kw))
-            out = self.orig(*a, **kw)
-            self.true += bool(out)
+            out = self.target(*a, **kw)
+            self.true += torch.is_tensor(out) or bool(out)
             return out
 
         setattr(self.obj, self.name, spy)
@@ -1311,7 +1348,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/14] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/15] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1320,7 +1357,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/14", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/15", devices=MULTI_DEVICES)
     spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
              for k in ("optimize_essential", "gba_chunk")}
     b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
@@ -1328,7 +1365,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/14] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/15] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
@@ -1341,7 +1378,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/14", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/15", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
@@ -1353,7 +1390,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/14] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/15] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1376,7 +1413,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/14] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/15] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     return (loop_launches, split_launches), out
@@ -1525,7 +1562,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/14] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/15] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1652,7 +1689,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/14] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/15] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1680,7 +1717,7 @@ def run_long(base: SLAMConfig) -> list:
     a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/14] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/15] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1689,12 +1726,440 @@ def run_long(base: SLAMConfig) -> list:
           f"{a_launches} / {b_launches}", flush=True)
     del frames
     c_launches, c = run_scale(base)
-    print(f"[14/14] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/15] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
           f"{c['peak_mem_mib']:.1f} MiB, {c['wall_s']:.1f} s, launches {c_launches}", flush=True)
     return [a_launches, b_launches, c_launches]
+
+
+def _k1_twin(canvas, table, threshold, nms=True, out=None):
+    """K1's plain version over every map a ``PyramidTable`` places in the
+    canvas, on the canvas's device (what the wrapper runs on a CPU canvas)."""
+    imgs = canvas.reshape(table.batch, -1, canvas.shape[-1])
+    maps = []
+    for l, (hl, wl) in enumerate(table.level_shapes):
+        r0 = int(table.segs[l * table.batch, 0])
+        score = fast.fast_score(imgs[:, r0:r0 + hl, :wl], threshold)
+        maps.append(fast.nms3(score) if nms else score)
+    return maps
+
+
+def _twins():
+    """The extractor's K1 and K2 calls swapped for their plain twins."""
+    from orb_slam2_ros2_tpu_torch.features import extractor as ext_mod
+
+    return (_Spy(fast, "fast_score_nms_pyramid", replace=_k1_twin),
+            _Spy(ext_mod, "extract_patches_48x64",
+                 replace=lambda canvas, centers, out=None: patches.extract_patches_plain(canvas, centers)))
+
+
+def _equal_trees(a, b) -> bool:
+    from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def debug_graphs():
+    """CUDA graphs made in the ``with`` body keep their captured graph
+    (``keep_graph``, instantiated as soon as the capture ends) with debugging
+    on, so ``graph_kernel_nodes`` can read which kernels they hold."""
+    made = torch.cuda.CUDAGraph
+
+    class DebugGraph(made):
+        def __init__(self, keep_graph=False):
+            super().__init__(True)   # the binding's constructor
+            self.enable_debug_mode()
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = DebugGraph
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def graph_kernel_nodes(graph) -> dict:
+    """The nodes of a graph captured under ``debug_graphs`` that run K1 and
+    K2 (by kernel), and its node count, read from its DOT dump
+    (``cudaGraphDebugDotPrint``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    start = r'[ \t]*"[^"\n]*node[^"\n]*"\s*\['   # a node statement: "graph_1_node_0"[...]
+    nodes = [c for c in re.split(r"\n(?=" + start + ")", dot) if re.match(start, c)]
+    out = {name: sum(f"{name}_kernel" in n for n in nodes) for name in ("fast_nms", "patches")}
+    out["nodes"] = len(nodes)
+    return out
+
+
+def _sync_error():
+    """``set_sync_debug_mode("error")`` for the ``with`` body: any host
+    synchronisation inside raises."""
+
+    @contextlib.contextmanager
+    def guard():
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    return guard()
+
+
+def run_extractor_single(base: SLAMConfig):
+    """15a: the one-image extractor on one rendered frame, with the kernels
+    (the main path: K1 and K2 once) and with their plain twins, bit-equal;
+    the FAST dispatchers against the plain score maps on that image."""
+    from orb_slam2_ros2_tpu_torch.features import make_extractor
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams
+
+    img = SyntheticStereoDataset(base.camera, n_frames=3, speed=SPEED, device="cuda").frame(1)[0]
+    cam = CameraParams.from_config(base.camera, "cuda")
+    ext = make_extractor(base, "cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    feats, pt = ext(img, cam)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if (launches["fast_nms"], launches["patches"]) != (1, 1):
+        raise AssertionError(f"15a: one-image extractor launched {launches}")
+    k1, k2 = _twins()
+    with k1, k2:
+        feats_p, pt_p = ext(img, cam)
+    if (k1.calls, k2.calls) != (1, 1) or not _equal_trees((feats, pt), (feats_p, pt_p)):
+        raise AssertionError(f"15a: extractor with kernels differs from its plain twins ({k1.calls}, {k2.calls})")
+    x = img.to(torch.bfloat16)
+    plain = fast.fast_score(x, FAST_TH)
+    for name, got, want in (("fast_score_dispatch", fast.fast_score_dispatch(x, FAST_TH), plain),
+                            ("fast_score_nms_dispatch", fast.fast_score_nms_dispatch(x, FAST_TH), fast.nms3(plain))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
+    out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
+    print(f"[15/15] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+          f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
+          f"on the {tuple(x.shape)} image", flush=True)
+    return launches
+
+
+def run_odometry(base: SLAMConfig):
+    """15b: ``OdometryTracker`` over ODO_FRAMES frames of the KITTI-like
+    forward world (every frame tracked, ATE under 5% of the path), then the
+    fused step eagerly and from its CUDA graph in turns, bit-equal, with no
+    host synchronisation; K1 and K2 once each among the graph's nodes, and
+    one replay traced.  Returns the launch counts of
+    the tracker's run and of the graph's."""
+    from orb_slam2_ros2_tpu_torch.features import make_stereo_frontend
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams
+    from orb_slam2_ros2_tpu_torch.pipeline import tracking as tr
+
+    ds = SyntheticStereoDataset(base.camera, n_frames=ODO_FRAMES, speed=SPEED, device="cuda")
+    frames = [ds.frame(i) for i in range(ODO_FRAMES)]   # rendered on the card, set-up
+    gt = [g for _, _, g in frames]
+    cam = CameraParams.from_config(base.camera, "cuda")
+    fe = make_stereo_frontend(base, "cuda")
+    tracker = tr.OdometryTracker(base, cam, device="cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    est, retries = [], 0
+    for i, (l, r, _) in enumerate(frames):
+        pose, info = tracker.track(fe(l, r, cam))
+        if pose is None or tracker.state != TrackState.OK:
+            raise AssertionError(f"15b: odometry frame {i}: {tracker.state} {info}")
+        retries += bool(info.get("wide_retry"))
+        est.append(np.linalg.inv(pose.astype(np.float64)))
+    tracker_s = time.perf_counter() - t0
+    tracker_launches = _launches()
+    if (tracker_launches["fast_nms"], tracker_launches["patches"]) != (ODO_FRAMES, ODO_FRAMES):
+        raise AssertionError(f"15b: tracker launches {tracker_launches} for {ODO_FRAMES} frames")
+    path = path_length(gt)
+    ate = ate_rmse(est, gt)
+    if not ate < MAX_ATE_LIVE * path:
+        raise AssertionError(f"15b: odometry ATE {ate:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
+
+    step = tr.make_fused_odometry_step(base, "cuda")
+    eye = torch.eye(4, dtype=torch.float32, device="cuda")
+    sf0 = fe(frames[0][0], frames[0][1], cam)
+    pw, has = tr.unproject_frame(cam, sf0, eye)
+    state_e = state_g = (tr.TrackedFrame(sf0, eye, pw, has), eye)
+    eager_ms, replay_ms, wrapper = [], [], {"fast_nms": 0, "patches": 0}
+    prof = trace = None
+    for i in range(1, ODO_FRAMES):
+        l, r, _ = frames[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _sync_error():
+            out_e = step.program(cam, l, r, *state_e)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1000.0)
+        before = _launches()
+        t0 = time.perf_counter()
+        if i == PROFILED_CALL:
+            r0 = step.replays
+            prof = kernel_profile(lambda: step(cam, l, r, *state_g))
+            out_g = prof.pop("result")
+            trace = dict(_kernel_counts(prof), graph_launches=prof["graph_launches"], replays=step.replays - r0)
+            if (trace["graph_launches"], trace["replays"]) != (1, 1):
+                raise AssertionError(f"15b: traced replay {trace}")
+            _replays["profiled"] += 1
+        else:
+            with _sync_error(), (debug_graphs() if i == 1 else contextlib.nullcontext()):
+                out_g = step(cam, l, r, *state_g)
+            torch.cuda.synchronize()
+            if i > 1:
+                replay_ms.append((time.perf_counter() - t0) * 1000.0)
+        for k in wrapper:
+            wrapper[k] += _launches()[k] - before[k]
+        if not _equal_trees(out_e, out_g):
+            raise AssertionError(f"15b: fused step frame {i}: graph replay differs from the eager step")
+        state_e, state_g = out_e[:2], out_g[:2]
+    if step.captures != 1 or step.replays != ODO_FRAMES - 2 or wrapper != {"fast_nms": 1, "patches": 1}:
+        raise AssertionError(f"15b: {step.captures} captures, {step.replays} replays, wrapper launches {wrapper}")
+    # what the graph holds, from its nodes: K1 and K2 once each (a replay runs
+    # every node once); the trace above is what the profiler recorded of one
+    nodes = graph_kernel_nodes(next(iter(step._graphs.values())).graph)
+    if (nodes["fast_nms"], nodes["patches"]) != (1, 1):
+        raise AssertionError(f"15b: the odometry graph's kernel nodes {nodes}")
+    graph_launches = dict(wrapper, replays=step.replays)
+    _replays["run"] += step.replays
+    out = dict(frames=ODO_FRAMES, ate_m=ate, path_m=path, wide_retries=retries, tracker_s=tracker_s,
+               tracker_launches=tracker_launches, eager_ms_median=statistics.median(eager_ms),
+               replay_ms_median=statistics.median(replay_ms), captures=step.captures, replays=step.replays,
+               replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
+               graph_nodes=nodes, trace=trace,
+               sync_debug="error: no host synchronisation in the eager steps or the replays")
+    print(f"[15/15] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+          flush=True)
+    return tracker_launches, graph_launches
+
+
+def sba_problem(cam_cfg, gen: torch.Generator):
+    """A local-BA-sized grid problem on the card, from ``gen``: SBA_CAMS
+    cameras 0.4 m apart moving forward (the first SBA_FIXED fixed) with
+    SBA_SLOTS stereo slots each, over SBA_POINTS point slots.  Each of the
+    first SBA_CAMS · SBA_SLOTS / SBA_VIEWS points is seen by SBA_VIEWS
+    consecutive cameras (cyclically: point q by cameras q, q+1, … mod
+    SBA_CAMS), so neighbouring cameras share points as a keyframe window
+    does; it is placed 8-40 m ahead in the view of the most forward of
+    them, so the others see it too.  The remaining slots are unobserved.
+    0.3 px noise, SBA_OUTLIERS of the edges moved 15-40 px, free poses and
+    the points perturbed.  Returns (problem, ground-truth poses, outlier
+    mask)."""
+    from orb_slam2_ros2_tpu_torch.geometry import se3
+    from orb_slam2_ros2_tpu_torch.solvers.schur_ba import BAProblem
+
+    dev = "cuda"
+    C, N, P, V = SBA_CAMS, SBA_SLOTS, SBA_POINTS, SBA_VIEWS
+    per_residue = N // V
+    n_obs = C * per_residue                  # observed points
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    i = torch.arange(C, device=dev, dtype=torch.float32)[:, None]
+    xi = torch.cat([torch.cat([0.02 * i, 0.01 * i, -0.4 * i], 1), 0.01 * randn(C, 3)], 1)
+    Tcw = se3.exp(xi)
+    q = torch.arange(n_obs, device=dev)
+    front = Tcw[torch.clamp(q % C + V - 1, max=C - 1)]   # the most forward camera seeing q
+    z = 8.0 + 32.0 * rand(n_obs)
+    u = 40.0 + (cam_cfg.width - 80) * rand(n_obs)
+    v = 30.0 + (cam_cfg.height - 60) * rand(n_obs)
+    pc = torch.stack([(u - cam_cfg.cx) / cam_cfg.fx * z, (v - cam_cfg.cy) / cam_cfg.fy * z, z], 1)
+    pts = torch.zeros(P, 3, device=dev)
+    pts[:n_obs] = torch.einsum("qji,qj->qi", front[:, :3, :3], pc - front[:, :3, 3])
+    # camera c's slot j·per_residue + m holds point ((c − j) mod C) + C·m
+    c_ = torch.arange(C, device=dev)[:, None, None]
+    j_ = torch.arange(V, device=dev)[None, :, None]
+    m_ = torch.arange(per_residue, device=dev)[None, None, :]
+    slot = ((c_ - j_) % C + C * m_).reshape(C, N).to(torch.int32)
+    pc = torch.einsum("cij,cnj->cni", Tcw[:, :3, :3], pts[slot.long()]) + Tcw[:, None, :3, 3]
+    uv = torch.stack([cam_cfg.fx * pc[..., 0] / pc[..., 2] + cam_cfg.cx,
+                      cam_cfg.fy * pc[..., 1] / pc[..., 2] + cam_cfg.cy], -1) + 0.3 * randn(C, N, 2)
+    valid = ((pc[..., 2] > 0.5) & (uv[..., 0] > 0) & (uv[..., 0] < cam_cfg.width)
+             & (uv[..., 1] > 0) & (uv[..., 1] < cam_cfg.height))
+    right_u = torch.where(valid, uv[..., 0] - cam_cfg.bf / pc[..., 2].clamp(min=0.5), -1.0)
+    outlier = valid & (rand(C, N) < SBA_OUTLIERS)
+    shift = (15.0 + 25.0 * rand(C, N, 2)) * torch.where(rand(C, N, 2) < 0.5, -1.0, 1.0)
+    uv = torch.where(outlier[..., None], uv + shift, uv)
+    free = torch.arange(C, device=dev) >= SBA_FIXED
+    noise = torch.cat([0.05 * randn(C, 3), 0.01 * randn(C, 3)], 1)
+    Tcw_init = torch.where(free[:, None, None], se3.exp(noise) @ Tcw, Tcw)
+    prob = BAProblem(
+        cam_Tcw=Tcw_init, cam_free=free, pt_pos=pts + 0.1 * randn(P, 3),
+        pt_valid=torch.ones(P, dtype=torch.bool, device=dev), pt_slot=torch.where(valid, slot, -1),
+        uv=uv, right_u=right_u, inv_sigma2=torch.ones(C, N, device=dev), edge_valid=valid,
+    )
+    return prob, Tcw, outlier
+
+
+def _pose_diff(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(largest camera-centre distance in m, largest rotation angle in °)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    dR = a[:, :3, :3] @ b[:, :3, :3].transpose(1, 2)
+    w = torch.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0], dR[:, 1, 0] - dR[:, 0, 1]], 1)
+    ang = torch.rad2deg(torch.asin((w.norm(dim=1) / 2).clamp(max=1.0)))
+    ca = -torch.einsum("cji,cj->ci", a[:, :3, :3], a[:, :3, 3])
+    cb = -torch.einsum("cji,cj->ci", b[:, :3, :3], b[:, :3, 3])
+    return float((ca - cb).norm(dim=1).max()), float(ang.max())
+
+
+def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
+    """15c: ``solve_ba`` on a local-BA-sized grid problem: the error falls,
+    the fixed cameras keep their bits, no host synchronisation, and the
+    same call on a CPU copy agrees within the CPU tests' tolerances."""
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams
+    from orb_slam2_ros2_tpu_torch.solvers import schur_ba
+
+    prob, _, outlier = sba_problem(base.camera, gen)
+    cam = CameraParams.from_config(base.camera, "cuda")
+    schur_ba.solve_ba(cam, prob)   # warm-up (library handles, allocator)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with _sync_error():
+        T, pts, inl = schur_ba.solve_ba(cam, prob)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    # the robust cost the LM minimises, and the median χ² of the edges left
+    # clean (a point seen twice, once by an outlier, may be dragged off)
+    chi2_th = torch.where(prob.right_u > 0, 7.815, 5.991)
+    rho = schur_ba._truncated_huber(chi2_th)
+    chi_a, chi_b = (schur_ba._chi2(cam, prob, Tx, px) for Tx, px in ((prob.cam_Tcw, prob.pt_pos), (T, pts)))
+    cost0, cost1 = float(rho(chi_a, prob.edge_valid)), float(rho(chi_b, prob.edge_valid))
+    good = prob.edge_valid & ~outlier
+    chi0, chi1 = float(chi_a[good].median()), float(chi_b[good].median())
+    fixed_kept = torch.equal(T[:SBA_FIXED], prob.cam_Tcw[:SBA_FIXED])
+    cpu = schur_ba.solve_ba(CameraParams.from_config(base.camera, "cpu"),
+                            schur_ba.BAProblem(*(t.cpu() for t in prob)))
+    d_m, d_deg = _pose_diff(T, cpu[0])
+    # points that keep an inlier edge (one with every edge gated out is
+    # held by nothing but Huber-weighted outliers; the reference culls it)
+    slot = prob.pt_slot.clamp(min=0).long()
+    kept = torch.zeros(SBA_POINTS, dtype=torch.bool, device="cuda")
+    kept[slot[inl]] = True
+    d_pts = float((pts.cpu() - cpu[1]).abs()[kept.cpu()].max())
+    d_gate = int((inl.cpu() != cpu[2]).sum())
+    out = dict(cameras=SBA_CAMS, fixed=SBA_FIXED, slots=SBA_SLOTS, point_slots=SBA_POINTS,
+               points_observed=SBA_CAMS * SBA_SLOTS // SBA_VIEWS, views_per_point=SBA_VIEWS,
+               edges=int(prob.edge_valid.sum()), outliers=int(outlier.sum()),
+               outliers_gated=int((outlier & ~inl).sum()), robust_cost_before=cost0, robust_cost_after=cost1,
+               chi2_clean_median_before=chi0, chi2_clean_median_after=chi1, ms=ms, peak_mem_mib=peak_mib, fixed_bit_unchanged=fixed_kept,
+               cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
+               cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
+               sync_debug="error: no host synchronisation")
+    print(f"[15/15] c. Schur BA: {json.dumps(out)}", flush=True)
+    if not (cost1 < cost0 and chi1 < 0.1 * chi0):
+        raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
+                             f"{chi0:.3f} → {chi1:.3f}")
+    if not fixed_kept:
+        raise AssertionError("15c: a fixed camera moved")
+    if d_m > 1e-4 or d_deg > 1e-3 or d_pts > 1e-3 or d_gate:
+        raise AssertionError(f"15c: the CPU copy differs: {d_m} m, {d_deg}°, points {d_pts} m, gates {d_gate}")
+    return out
+
+
+def run_corpus(base: SLAMConfig):
+    """15d: ``train_corpus_vocab.main`` at the full image size on CORPUS_PAIRS
+    frame pairs of each world with the depth cut to CORPUS_DEPTH (the
+    packaged vocabulary is L = 5 over every pair: the cut keeps the phase
+    short); its K1 launches over the four-image table and its extraction
+    held to the plain twins on one batch."""
+    from orb_slam2_ros2_tpu_torch import train_corpus_vocab as tcv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        stats = tcv.main(out=os.path.join(tmp, "vocab.npz"), device="cuda", depth=CORPUS_DEPTH, pairs=CORPUS_PAIRS, cfg=base)
+        launches = _launches()
+    n_batches = CORPUS_PAIRS * len(tcv.worlds(base.camera, "cuda"))
+    if (launches["fast_nms"], launches["patches"]) != (n_batches, n_batches):
+        raise AssertionError(f"15d: corpus launches {launches} for {n_batches} batches")
+
+    extract = tcv.CorpusExtractor(base, "cuda")
+    ds = tcv.worlds(base.camera, "cuda")[3][1]   # the adversarial world
+    l0, r0, _ = ds.frame(0)
+    l1, r1, _ = ds.frame(1)
+    seen = []   # the canvas and table of the batch's K1 call
+    with _Spy(fast, "fast_score_nms_pyramid", pred=lambda c, t, *a, **kw: not seen.append((c, t))) as k1:
+        descs = extract(l0, l1, r0, r1)
+    k1_twin, k2_twin = _twins()
+    with k1_twin, k2_twin:
+        descs_plain = extract(l0, l1, r0, r1)
+    canvas, table = seen[0]
+    maps = fast.fast_score_nms_pyramid(canvas, table, FAST_TH)
+    twin = _k1_twin(canvas, table, FAST_TH)
+    torch.cuda.synchronize()
+    if table.batch != 4 or k1.calls != 1 or not all(torch.equal(a, b) for a, b in zip(maps, twin)):
+        raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
+    if not np.array_equal(descs, descs_plain):
+        raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
+    print(f"[15/15] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+          f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
+          f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
+    return launches, stats
+
+
+def run_profiled(map_cfg: SLAMConfig):
+    """15e: ``SLAM.profile`` over phase 6's first PROFILE_FRAMES frames:
+    every stage that ran holds its positive seconds (call PROFILED_CALL is
+    traced, and its stage time with it)."""
+    ds = SyntheticStereoDataset(map_cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
+                                box_scale=2.5, sky=True, device="cuda")
+    frames = [ds.frame(i) for i in range(PROFILE_FRAMES)]   # rendered on the card, set-up
+    slam = SLAM(map_cfg, enable_loop_closing=False, device="cuda")
+    slam.profile = True
+    torch.cuda.synchronize()
+    _reset_launches()
+    for i, (l, r, _) in enumerate(frames):
+        pose, stats, _ = _track(slam, i, l, r, profile=i == PROFILED_CALL)
+        if slam.state != TrackState.OK or pose is None:
+            raise AssertionError(f"15e: frame {i}: {slam.state} {stats}")
+    slam.flush()
+    launches = _launches()
+    st = slam.stage_times
+    new_kf = slam._n_kf - 1
+    want = {"frontend": 1, "track": PROFILE_FRAMES - 1, "map_front": new_kf}
+    counts = {k: len(v) for k, v in st.items()}
+    if (any(counts.get(k) != n for k, n in want.items()) or not 1 <= counts.get("map_tail", 0) <= new_kf
+            or set(counts) != {"frontend", "track", "map_front", "map_tail"}
+            or not all(t > 0 for ts in st.values() for t in ts)):
+        raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
+                             f"{json.dumps(st)}")
+    summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
+    print(f"[15/15] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+          f"{json.dumps(summary)}, launches {launches}", flush=True)
+    return launches, summary
+
+
+def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -> list:
+    """Phase 15: the one-image extractor, the odometry path, the per-camera
+    Schur BA, the corpus trainer and stage profiling.  Returns the launch
+    counts of the main-path runs."""
+    t0 = time.perf_counter()
+    a = run_extractor_single(base)
+    b_tracker, b_graph = run_odometry(base)
+    run_schur_ba(base, gen)
+    d, _ = run_corpus(base)
+    e, _ = run_profiled(map_cfg)
+    print(f"[15/15] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [a, b_tracker, b_graph, d, e]
 
 
 def _frame_ms(records, keyframe=None):
@@ -1709,12 +2174,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/14] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/15] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/14] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/15] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -1730,21 +2195,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/14] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/15] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/14] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/15] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/14] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/15] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/14] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/15] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -1753,7 +2218,7 @@ def main() -> int:
     map_summary.update(frame_ms_keyframe=_frame_ms(map_records, True), frame_ms_other=_frame_ms(map_records, False))
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/14] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/15] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -1761,15 +2226,15 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/14] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/15] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/14] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/15] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     _, loop_launches, loop = run_loop(base)
-    print(f"[9/14] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/15] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -1789,7 +2254,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/14] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/15] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -1800,7 +2265,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/14] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/15] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -1809,23 +2274,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/14] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/15] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/14] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/15] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/14] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/15] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/14")
-    print(f"[11/14] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/15")
+    print(f"[11/15] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -1836,31 +2301,33 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/14] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/14] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/15] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/15] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/14] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/15] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/14] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/15] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/14] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/15] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches = run_long(base)
+    remaining_launches = run_remaining(base, map_cfg, gen)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
-                     blackout_launches, *shell_launches, *multi_launches, *long_launches)
+                     blackout_launches, *shell_launches, *multi_launches, *long_launches,
+                     *remaining_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

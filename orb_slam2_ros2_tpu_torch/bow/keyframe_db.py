@@ -44,7 +44,7 @@ class KeyFrameDB(NamedTuple):
     weights: torch.Tensor   # f32[K, S]
 
     @staticmethod
-    def empty(n_keyframes: int, max_words: int, device="cpu") -> "KeyFrameDB":
+    def empty(n_keyframes: int, max_words: int, device) -> "KeyFrameDB":
         return KeyFrameDB(
             word_ids=torch.full((n_keyframes, max_words), -1, dtype=torch.int32, device=device),
             weights=torch.zeros((n_keyframes, max_words), dtype=torch.float32, device=device),

@@ -41,7 +41,7 @@ class Vocabulary(NamedTuple):
         return self.idf.device
 
 
-def from_arrays(levels, idf, branching: int, depth: int, device="cpu") -> Vocabulary:
+def from_arrays(levels, idf, branching: int, depth: int, device) -> Vocabulary:
     """Vocabulary from host arrays (uint32 or int32 centroid words)."""
     def words(a):
         a = np.ascontiguousarray(a)
@@ -91,7 +91,7 @@ def _kmedians(descs: np.ndarray, k: int, rng, iters: int = 8) -> np.ndarray:
 
 
 def train_vocabulary(
-    descriptors: np.ndarray, branching: int = 10, depth: int = 4, seed: int = 0, device="cpu"
+    descriptors: np.ndarray, branching: int = 10, depth: int = 4, seed: int = 0, *, device
 ) -> Vocabulary:
     """Hierarchical k-medians over training descriptors uint32[N, 8] (int32
     words are reinterpreted)."""
@@ -154,7 +154,7 @@ def bow_vector(vocab: Vocabulary, word_ids: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v), min=1e-9)
 
 
-def load_dbow_text(path: str, device="cpu") -> Vocabulary:
+def load_dbow_text(path: str, device) -> Vocabulary:
     """Parse a DBoW2/DBoW3 text vocabulary (ORBvoc.txt, System.cc:92-95)
     into the array tree.
 
@@ -222,7 +222,7 @@ def save_vocabulary(vocab: Vocabulary, path: str) -> None:
     )
 
 
-def load_vocabulary(path: str, device="cpu") -> Vocabulary:
+def load_vocabulary(path: str, device) -> Vocabulary:
     z = np.load(path)
     depth = int(z["depth"])
     return from_arrays([z[f"level_{d}"] for d in range(depth)], z["idf"],

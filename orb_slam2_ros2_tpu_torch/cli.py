@@ -14,7 +14,8 @@ evaluating ATE where ground truth exists.  ``kitti`` and ``tum`` decode each
 image on the host (``io/datasets.py``) and ``track`` copies it to the device;
 ``synth`` renders on the device.  The JAX CLI's persistent XLA compile cache
 has no counterpart: the CUDA kernels are compiled once into ``build/`` at
-the repository root and reused from there.  ``--trace DIR`` writes a
+the repository root and reused from there (``build/kernels/``, keyed by
+a hash of each source and its flags).  ``--trace DIR`` writes a
 ``torch.profiler`` Chrome trace to ``DIR/trace.json``.  ``--distributed``
 joins a multi-process run through the ``SLAM_*`` variables
 (``parallel.mesh.init_distributed``); ``--ba-devices N`` shards the
@@ -67,14 +68,19 @@ def _align_pipelined(slam, poses, n):
     return [by_fid.get(i) for i in range(n)]
 
 
+def _make_viewer(slam, args):
+    """The live viewer the ``--viewer`` flags ask for, or None."""
+    if not args.viewer:
+        return None
+    from .viewer import LiveViewer
+
+    return LiveViewer(slam, every=args.viewer_every, out_dir=args.viewer)
+
+
 def _track_sequence(slam, frame, n: int, args):
     """Track frames 0..n-1 of ``frame(i) -> (a, b, stamp, Twc_gt or None)``;
     returns (Twc poses or None, stamps, ground truth, wall seconds)."""
-    viewer = None
-    if args.viewer:
-        from .viewer import LiveViewer
-
-        viewer = LiveViewer(slam, every=args.viewer_every, out_dir=args.viewer)
+    viewer = _make_viewer(slam, args)
     poses, stamps, gt = [], [], []
     t0 = time.time()
     for i in range(n):
@@ -103,6 +109,16 @@ def _new_slam(cfg: SLAMConfig, args, rgbd: bool = False):
     return slam
 
 
+def run_stereo(dataset, cfg: SLAMConfig, args):
+    """Track a stereo dataset (``frame(i) -> (left, right, stamp)``) with a
+    new ``SLAM`` (loading ``--load-map`` first); returns (slam, Twc poses or
+    None, stamps, wall seconds)."""
+    slam = _new_slam(cfg, args)
+    n = min(len(dataset), args.frames) if args.frames else len(dataset)
+    poses, stamps, _, wall = _track_sequence(slam, lambda i: (*dataset.frame(i), None), n, args)
+    return slam, poses, stamps, wall
+
+
 def _run_sequence(args) -> dict:
     """One ``kitti`` / ``tum`` / ``synth`` run: track, write both trajectory
     files, save the map if asked; returns the JSON line's fields."""
@@ -111,9 +127,7 @@ def _run_sequence(args) -> dict:
 
         ds = KittiStereoDataset(args.seq)
         h, w = ds.frame(0)[0].shape
-        slam = _new_slam(_build_cfg(args, w, h), args)
-        n = min(len(ds), args.frames) if args.frames else len(ds)
-        poses, stamps, _, wall = _track_sequence(slam, lambda i: (*ds.frame(i), None), n, args)
+        slam, poses, stamps, wall = run_stereo(ds, _build_cfg(args, w, h), args)
         # KITTI ground-truth row i is frame i
         gt_all = load_kitti_gt(args.seq, args.gt)
         gt = list(gt_all[: len(poses)]) if gt_all is not None else None
@@ -210,7 +224,7 @@ def _train_vocab(args) -> None:
             print(f"[train-vocab] frame {i}/{n_frames}", file=sys.stderr)
     alld = np.concatenate(descs)
     print(f"[train-vocab] {len(alld)} descriptors → k={args.branching} L={args.depth}", file=sys.stderr)
-    vocab = train_vocabulary(alld, branching=args.branching, depth=args.depth)
+    vocab = train_vocabulary(alld, branching=args.branching, depth=args.depth, device=args.device)
     save_vocabulary(vocab, args.out)
     print(json.dumps({"descriptors": int(len(alld)), "words": vocab.n_words, "out": args.out}))
 

@@ -6,9 +6,10 @@ src/ORBExtractor.cc:499-508, src/Frame.cc:85-159).  Both images of a stereo
 pair run through the same batched ops: [B, H, W] pyramids written into one
 row-stacked canvas, one FAST+NMS kernel launch over every level of that
 canvas, one patch-gather kernel launch over it, and the stereo matcher
-reuses the gathered patches for SAD refinement.  The RGB-D frontend runs the
-same ops on a one-image canvas and reads each keypoint's depth from the
-depth map.  Constant operators (resize
+reuses the gathered patches for SAD refinement.  The RGB-D frontend and the
+one-image extractor (``make_extractor``) run the same ops on a one-image
+canvas; the RGB-D frontend reads each keypoint's depth from the depth map.
+Constant operators (resize
 weights, moment weights, the BRIEF sampling matrix) and the FAST kernel's
 level table are built once, when the frontend is built, so a frame copies
 nothing from the host.
@@ -24,7 +25,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry import camera as cam_mod
 from ..ops import brief, fast, stereo
-from ..ops.canvas import canvas_layout, padded_canvas_shape
+from ..ops.canvas import build_canvas, canvas_layout, padded_canvas_shape
 from ..ops.patches import extract_patches_48x64
 from ..ops.pyramid import PyramidWeights, build_pyramid, pyramid_weights
 from .frame import FrameFeatures, StereoFrame
@@ -91,16 +92,10 @@ def extract_features_batch(
         raise ValueError(f"the frontend's constants are for {consts.fast_table.batch} images, got {B}")
     dev = imgs.device
     levels = build_pyramid(imgs, n_levels, scale_factor, consts.pyramid)
-    row_off_np, _, _ = canvas_layout(h, w, n_levels, scale_factor)
     rows_p, cols_p = padded_canvas_shape(h, w, n_levels, scale_factor)
 
     # one tall canvas holding every image's pyramid (image b at row b·rows_p)
-    canvas = torch.zeros((B * rows_p, cols_p), dtype=torch.bfloat16, device=dev)
-    for b in range(B):
-        for l in range(n_levels):
-            hl, wl = levels[l].shape[-2:]
-            r0 = b * rows_p + int(row_off_np[l])
-            canvas[r0:r0 + hl, :wl] = levels[l][b]
+    canvas = torch.cat([build_canvas([lv[b] for lv in levels], cols_p, rows_p) for b in range(B)])
 
     scores = fast.fast_score_nms_pyramid(canvas, consts.fast_table, min_th)  # [B, Hl, Wl] each
     uts, resps, valids, octs = [], [], [], []
@@ -143,6 +138,29 @@ def _slice_frame(feats: FrameFeatures, b: int) -> FrameFeatures:
     return FrameFeatures(*(a[b] for a in feats))
 
 
+def extract_features(
+    img: torch.Tensor,
+    cam: cam_mod.CameraParams,
+    consts: FrontendConstants,
+    **kw,
+) -> Tuple[FrameFeatures, torch.Tensor]:
+    """One image ``[H, W]`` → (FrameFeatures, patches f32[N, 48, 64]); the
+    constants are a one-image frontend's."""
+    feats, patches = extract_features_batch(img[None], cam, consts, **kw)
+    return _slice_frame(feats, 0), patches[0]
+
+
+def _extract_kw(cfg: SLAMConfig) -> dict:
+    """The static arguments of ``extract_features_batch`` for ``cfg``."""
+    o, c = cfg.orb, cfg.camera
+    return dict(
+        h=c.height, w=c.width, n_levels=o.n_levels, scale_factor=o.scale_factor,
+        caps=tuple(level_capacities(o.max_keypoints, o.n_levels, o.scale_factor)),
+        border=o.edge_border, min_th=float(o.min_th_fast), ini_th=float(o.ini_th_fast),
+        cell=o.cell_size, undistort=c.has_distortion,
+    )
+
+
 def _template_pair_matrix(cfg: SLAMConfig):
     """Per-instance BRIEF sampling matrix for a configured reference template
     (None = the generated default)."""
@@ -169,16 +187,10 @@ class StereoFrontend:
     n_images = 2
 
     def __init__(self, cfg: SLAMConfig, device):
-        o, c = cfg.orb, cfg.camera
         self.cfg = cfg
         self.consts = frontend_constants(cfg, device, self.n_images)
         self.luma = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=device)
-        self.kw = dict(
-            h=c.height, w=c.width, n_levels=o.n_levels, scale_factor=o.scale_factor,
-            caps=tuple(level_capacities(o.max_keypoints, o.n_levels, o.scale_factor)),
-            border=o.edge_border, min_th=float(o.min_th_fast), ini_th=float(o.ini_th_fast),
-            cell=o.cell_size, undistort=c.has_distortion,
-        )
+        self.kw = _extract_kw(cfg)
 
     def __call__(self, img_l: torch.Tensor, img_r: torch.Tensor, cam: cam_mod.CameraParams) -> StereoFrame:
         c, o, m = self.cfg.camera, self.cfg.orb, self.cfg.matcher
@@ -208,8 +220,7 @@ class RGBDFrontend(StereoFrontend):
     def __call__(self, img: torch.Tensor, depth_map: torch.Tensor, cam: cam_mod.CameraParams) -> StereoFrame:
         c = self.cfg.camera
         img = _device_gray(img, c.color, self.luma)
-        feats, _ = extract_features_batch(img[None].float(), cam, self.consts, **self.kw)
-        feats = _slice_frame(feats, 0)
+        feats, _ = extract_features(img.float(), cam, self.consts, **self.kw)
         yi = torch.round(feats.uv_raw[:, 1]).long().clamp(0, c.height - 1)
         xi = torch.round(feats.uv_raw[:, 0]).long().clamp(0, c.width - 1)
         d = depth_map[yi, xi].float() / c.depth_scale
@@ -217,6 +228,22 @@ class RGBDFrontend(StereoFrontend):
         depth = torch.where(ok, d, -1.0)
         right_u = torch.where(ok, feats.uv[:, 0] - cam.bf / torch.where(ok, d, 1.0), -1.0)
         return StereoFrame(feats=feats, right_u=right_u, depth=depth)
+
+
+class Extractor:
+    """One-image extractor: ``(img [H, W], cam) → (FrameFeatures, patches
+    f32[N, 48, 64])``; one FAST launch and one patch launch a call on CUDA."""
+
+    def __init__(self, cfg: SLAMConfig, device):
+        self.consts = frontend_constants(cfg, device, n_images=1)
+        self.kw = _extract_kw(cfg)
+
+    def __call__(self, img: torch.Tensor, cam: cam_mod.CameraParams) -> Tuple[FrameFeatures, torch.Tensor]:
+        return extract_features(img.float(), cam, self.consts, **self.kw)
+
+
+def make_extractor(cfg: SLAMConfig, device="cuda") -> Extractor:
+    return Extractor(cfg, device)
 
 
 def make_stereo_frontend(cfg: SLAMConfig, device="cuda") -> StereoFrontend:

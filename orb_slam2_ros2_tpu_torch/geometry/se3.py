@@ -1,7 +1,6 @@
 """SE(3) rigid transforms as batched torch tensors.
 
-Port of ``orb_slam2_ros2_tpu/geometry/se3.py`` (the functions the tracking
-path calls).  A pose is a plain ``f32[..., 4, 4]`` tensor; the tangent
+Port of ``orb_slam2_ros2_tpu/geometry/se3.py``.  A pose is a plain ``f32[..., 4, 4]`` tensor; the tangent
 convention is ``xi = [rho, phi]`` with ``exp(xi) = [[exp(phi^), V rho], [0, 1]]``
 (g2o's SE3Quat ordering, reference src/Optimizer.cc:628-718).
 """
@@ -11,6 +10,11 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def identity(batch: tuple = (), *, device) -> torch.Tensor:
+    """Identity poses ``[*batch, 4, 4]`` on ``device``."""
+    return torch.eye(4, dtype=torch.float32, device=device).expand(*batch, 4, 4).clone()
 
 
 def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -35,6 +39,10 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form SE3 inverse: [R^T, -R^T t]."""
     Rt = R_of(T).transpose(-1, -2)
     return from_Rt(Rt, -torch.einsum("...ij,...j->...i", Rt, t_of(T)))
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -104,6 +112,16 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
     R = so3_exp(phi)
     t = torch.einsum("...ij,...j->...i", _V(phi), rho)
     return from_Rt(R, t)
+
+
+def log(T: torch.Tensor) -> torch.Tensor:
+    """se(3) log: [..., 4, 4] -> [..., 6] (rho, phi).  Small angles take
+    ``so3_log``'s series branch; ``V`` is inverted by ``inv_ex`` (no host
+    check of its info)."""
+    phi = so3_log(R_of(T))
+    Vinv, _ = torch.linalg.inv_ex(_V(phi))
+    rho = torch.einsum("...ij,...j->...i", Vinv, t_of(T))
+    return torch.cat([rho, phi], dim=-1)
 
 
 def normalize(T: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ class Sim3(NamedTuple):
     s: torch.Tensor  # [...]
 
 
-def identity(batch: tuple = (), device="cpu") -> Sim3:
+def identity(batch: tuple = (), *, device) -> Sim3:
     return Sim3(
         R=torch.eye(3, dtype=torch.float32, device=device).expand(*batch, 3, 3).clone(),
         t=torch.zeros((*batch, 3), dtype=torch.float32, device=device),

@@ -39,7 +39,7 @@ def save_map(path: str, state: MapState, cfg: SLAMConfig) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_map(path: str, device="cpu") -> Tuple[MapState, dict]:
+def load_map(path: str, device) -> Tuple[MapState, dict]:
     """Load a map onto ``device``; returns (MapState, config-dict snapshot)."""
     z = np.load(path)
     fields = {}

@@ -118,6 +118,36 @@ def forward_backward_octaves(
     return lo, hi
 
 
+def search_by_area(
+    prev: FrameFeatures,
+    prev_has_mp: torch.Tensor,
+    cur: FrameFeatures,
+    cur_has_mp: torch.Tensor,
+    z_forward: torch.Tensor,
+    *,
+    radius: float,
+    scale_factor: float,
+    n_levels: int,
+    baseline: float,
+    max_dist: int,
+    ratio: float,
+    check_rotation: bool = True,
+) -> MatchResult:
+    """Motion-model matching around the previous keypoints' image positions
+    (ORBMatcher.cc:266-347): each previous keypoint carrying a map point
+    finds its best current keypoint nearby, current keypoints that already
+    hold one excluded (:321-334).  Returns per-previous-keypoint indices into
+    the current frame."""
+    lo, hi = forward_backward_octaves(prev.octave, z_forward, baseline, n_levels)
+    cand = area_candidates(prev.uv, prev.octave, cur, radius, lo, hi, scale_factor)
+    cand = cand & prev.valid[:, None] & prev_has_mp[:, None] & (~cur_has_mp)[None, :]
+    m = best_match(hamming_matrix(prev.desc, cur.desc), cand, max_dist, ratio)
+    if check_rotation:
+        keep = rotation_consistency(prev.angle, cur.angle[m.idx.clamp(min=0).long()], m.found)
+        m = MatchResult(idx=torch.where(keep, m.idx, -1), dist=m.dist)
+    return mutual_filter(m, cur.capacity)
+
+
 def mappoint_visibility(
     cam: CameraParams,
     Tcw: torch.Tensor,

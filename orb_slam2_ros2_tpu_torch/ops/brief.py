@@ -8,6 +8,11 @@ matrix are copies of the JAX package's (tested equal).
 
 Descriptors are int32 [N, 8]: the bits of the JAX package's uint32 words,
 reinterpreted (torch has no shifts on uint32).
+
+``set_template_file`` makes a file-loaded template the process-wide default
+of ``brief_template`` and of every table derived from it (tests and simple
+scripts; a frontend binds ``orb.brief_template_path`` per instance instead,
+and keeps the sampling matrix it was built with).
 """
 
 from __future__ import annotations
@@ -16,14 +21,19 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .patches import CENTER as PATCH_CENTER
 from .patches import PATCH_COLS, PATCH_ROWS
 
 N_PAIRS = 256
 N_ANGLE_BINS = 32
+PATCH_HALF = PATCH_CENTER  # keypoint border requirement (rows above/left)
 TEMPLATE_CLIP = 13       # max |coordinate| of a template point pre-rotation
 ORIENT_RADIUS = 15       # grey-centroid circular patch radius (ORBExtractor.cc:518)
+BLUR_PAD = 3             # 7-tap Gaussian apron
+
+_TEMPLATE_OVERRIDE = None  # set by set_template_file()
 
 
 def load_template_file(path: str) -> np.ndarray:
@@ -60,9 +70,34 @@ def load_template_file(path: str) -> np.ndarray:
     return t[:N_PAIRS]
 
 
+def _clear_template_caches() -> None:
+    brief_template.cache_clear()
+    rotated_offset_lut.cache_clear()
+    _pair_difference_matrix.cache_clear()
+
+
+def set_template_file(path: str) -> None:
+    """Make a file-loaded template the process-wide default: what
+    ``brief_template``, ``rotated_offset_lut`` and ``_pair_difference_matrix``
+    return from now on (their caches are cleared)."""
+    global _TEMPLATE_OVERRIDE
+    _TEMPLATE_OVERRIDE = load_template_file(path)
+    _clear_template_caches()
+
+
+def clear_template_override() -> None:
+    """Back to the seeded template."""
+    global _TEMPLATE_OVERRIDE
+    _TEMPLATE_OVERRIDE = None
+    _clear_template_caches()
+
+
 @lru_cache(maxsize=None)
 def brief_template(seed: int = 17) -> np.ndarray:
-    """[256, 4] int32 (x1, y1, x2, y2): seeded Gaussian pairs, BRIEF-style."""
+    """[256, 4] int32 (x1, y1, x2, y2): seeded Gaussian pairs, BRIEF-style
+    (or the file-loaded override, see ``set_template_file``)."""
+    if _TEMPLATE_OVERRIDE is not None:
+        return _TEMPLATE_OVERRIDE
     r = np.random.default_rng(seed)
     t = r.normal(scale=TEMPLATE_CLIP / 2.0, size=(N_PAIRS, 4))
     return np.clip(np.round(t), -TEMPLATE_CLIP, TEMPLATE_CLIP).astype(np.int32)
@@ -100,6 +135,20 @@ def _moment_weights():
     wx = (xs * mask).astype(np.float32).reshape(-1)
     wy = (ys * mask).astype(np.float32).reshape(-1)
     return wx, wy
+
+
+def blur_patches(patches: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian over patch stacks [N, P, Q] as shifted weighted sums
+    (rows first, then columns), edges replicated."""
+    from .pyramid import _gaussian_kernel_1d
+
+    k = [float(v) for v in _gaussian_kernel_1d(ksize, sigma)]
+    pad = ksize // 2
+    _, p, q = patches.shape
+    x = F.pad(patches[:, None], (0, 0, pad, pad), mode="replicate")[:, 0]
+    x = sum(k[i] * x[:, i:i + p, :] for i in range(ksize))
+    x = F.pad(x[:, None], (pad, pad, 0, 0), mode="replicate")[:, 0]
+    return sum(k[i] * x[:, :, i:i + q] for i in range(ksize))
 
 
 @lru_cache(maxsize=None)

@@ -36,6 +36,8 @@ CIRCLE_OFFSETS = np.array(
     dtype=np.int32,
 )
 
+ARC_LEN = 9  # FAST-9: 9 contiguous circle pixels (cv::FastFeatureDetector::TYPE_9_16)
+
 # kernel launches made by fast_score_nms_pyramid and fast_score_nms (one per
 # call on a CUDA tensor; a call inside a CUDA-graph capture records the
 # kernel and launches nothing, so it counts nothing)
@@ -208,6 +210,26 @@ def fast_score_nms(img: torch.Tensor, threshold: float, nms: bool = True) -> tor
     B, H, W = img.shape
     table = pyramid_table((0,), ((H, W),), B, H, W)
     return fast_score_nms_pyramid(img.reshape(B * H, W), table, threshold, nms)[0]
+
+
+def _dispatch(img: torch.Tensor, threshold: float, nms: bool) -> torch.Tensor:
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    out = fast_score_nms(img.reshape(-1, h, w).contiguous(), threshold, nms)
+    return out.reshape(*lead, h, w)
+
+
+def fast_score_dispatch(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """FAST score map of bf16 ``img [..., H, W]`` (leading dims batch): one
+    K1 launch on a CUDA tensor, ``fast_score`` on a CPU tensor; bit-equal on
+    every pixel."""
+    return _dispatch(img, threshold, nms=False)
+
+
+def fast_score_nms_dispatch(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """FAST score + 3×3 NMS of bf16 ``img [..., H, W]``: one K1 launch on a
+    CUDA tensor, ``nms3(fast_score)`` on a CPU tensor; bit-equal on every
+    pixel."""
+    return _dispatch(img, threshold, nms=True)
 
 
 def select_keypoints(

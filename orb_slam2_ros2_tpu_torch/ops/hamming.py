@@ -29,3 +29,12 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     int32[..., N, 8] × int32[..., M, 8]."""
     dot = unpack_signs(desc_a) @ unpack_signs(desc_b).transpose(-1, -2)
     return ((BITS - dot) * 0.5).to(torch.int32)
+
+
+def hamming_pairs(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance int32[...] between aligned packed descriptor rows
+    int32[..., 8].  The XOR is counted byte by byte on a uint8 view: a shift
+    of an int32 word with its sign bit set would carry the sign down."""
+    x = (desc_a ^ desc_b).contiguous().view(torch.uint8)   # [..., 32]
+    bits = sum((x >> k) & 1 for k in range(8))              # uint8 counts ≤ 8
+    return bits.sum(dim=-1, dtype=torch.int32)

@@ -64,6 +64,19 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return W
 
 
+def resize_bilinear_matmul(img: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
+    """Bilinear resize of ``[..., H, W]`` by two weight-matrix products (rows,
+    then columns).  The weights are rounded to the input dtype, each product
+    is taken in f32 and rounded to the input dtype once, as the JAX version's
+    ``preferred_element_type=f32`` then ``astype`` does."""
+    h_in, w_in = img.shape[-2:]
+    dt = img.dtype
+    Wh = torch.from_numpy(_resize_weights(h_in, h_out)).to(img.device).to(dt).float()
+    Ww = torch.from_numpy(_resize_weights(w_in, w_out)).to(img.device).to(dt).float()
+    tmp = torch.matmul(Wh, img.float()).to(dt)
+    return torch.matmul(tmp.float(), Ww.T).to(dt)
+
+
 @lru_cache(maxsize=None)
 def _area_weights(n_in: int, n_out: int) -> np.ndarray:
     """[n_out, n_in] f32 box-average (cv INTER_AREA) resampling matrix:

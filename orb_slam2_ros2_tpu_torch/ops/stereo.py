@@ -19,6 +19,27 @@ from .hamming import hamming_matrix
 from .patches import CENTER as PC
 
 
+def extract_rect(canvas: torch.Tensor, centers_yx: torch.Tensor, half_y: int, half_x: int) -> torch.Tensor:
+    """``[N, 2·half_y+1, 2·half_x+1]`` windows of ``canvas [H, W]`` around
+    integer (y, x) centres ``[N, 2]``, with ``lax.dynamic_slice``'s index
+    rules: a negative start counts from the far edge (start + dim), then
+    every start is clamped into the canvas — a window is never padded."""
+    sy, sx = 2 * half_y + 1, 2 * half_x + 1
+    h, w = canvas.shape
+    if sy > h or sx > w:
+        raise ValueError(f"a {sy}x{sx} window does not fit a {h}x{w} canvas")
+
+    def start(s, dim, size):
+        return torch.where(s < 0, s + dim, s).clamp(0, dim - size)
+
+    c = centers_yx.long()
+    y0 = start(c[:, 0] - half_y, h, sy)
+    x0 = start(c[:, 1] - half_x, w, sx)
+    rows = y0[:, None, None] + torch.arange(sy, device=canvas.device)[None, :, None]
+    cols = x0[:, None, None] + torch.arange(sx, device=canvas.device)[None, None, :]
+    return canvas[rows, cols]
+
+
 def level_coords(uv_raw: torch.Tensor, octave: torch.Tensor, scale_factor: float) -> torch.Tensor:
     """Level-0 pixel coords → the keypoint's own pyramid-level coords."""
     inv = torch.pow(1.0 / scale_factor, octave.float())

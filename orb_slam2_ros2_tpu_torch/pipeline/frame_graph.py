@@ -1,4 +1,5 @@
-"""The per-frame tracking program as captured CUDA graphs, and the pinned host
+"""The per-frame tracking program as captured CUDA graphs, a generic
+captured step (``StepGraph``, the odometry step's), and the pinned host
 buffers the frame loop stages through.
 
 ``FrameGraphs`` is the counterpart of the JAX package's jitted ``_frame`` and
@@ -91,17 +92,76 @@ def _capturing():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-class _Captured(NamedTuple):
+class _Step(NamedTuple):
     graph: Optional[torch.cuda.CUDAGraph]
-    inputs: tuple             # static (img_l, img_r, last, velocity, local)
+    inputs: tuple      # static inputs
     in_leaves: list
-    ref_kf: torch.Tensor      # static int32 [1]
-    outputs: Optional[tuple]  # the program's static outputs
-    map_ptrs: tuple           # the map storage the graph reads
+    outputs: Optional[tuple]
+
+
+class StepGraph:
+    """A program over nested tuples of tensors, captured as one CUDA graph
+    per input signature (shapes, dtypes, devices) at its first call, which
+    runs eagerly on a side stream and is that call's result; later calls
+    copy their inputs into the static ones, replay, and clone the outputs.
+    ``fixed`` tensors are passed after the inputs as they are, not copied:
+    the graph reads them at their addresses, which the caller keeps.  The
+    program must not read the host, and whatever it reads besides its
+    inputs (constants, kernel tables) must outlive the graph.  A failing
+    capture raises.  ``capture=False`` calls the program on the static
+    inputs in place of the replay (the CPU tests)."""
+
+    def __init__(self, program: Callable, *, capture: bool = True):
+        self.program = program
+        self.capture = capture
+        self._graphs: Dict[tuple, _Step] = {}
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, *args, fixed: tuple = ()):
+        leaves = tree_leaves(args)
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+        g = self._graphs.get(key)
+        if g is None:
+            return self._first(key, args, fixed)
+        torch._foreach_copy_(g.in_leaves, leaves)
+        if g.graph is not None:
+            g.graph.replay()
+            outputs = g.outputs
+        else:
+            outputs = self.program(*g.inputs, *fixed)
+        self.replays += 1
+        return tree_map(torch.clone, outputs)
+
+    def _first(self, key, args, fixed: tuple):
+        statics = tree_map(torch.clone, args)
+        if not self.capture:
+            self._graphs[key] = _Step(None, statics, tree_leaves(statics), None)
+            return self(*args, fixed=fixed)
+        dev = tree_leaves(args)[0].device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            result = self.program(*statics, *fixed)
+        main.wait_stream(side)
+        for t in tree_leaves(result):
+            t.record_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with _capturing(), torch.cuda.graph(graph):
+            outputs = self.program(*statics, *fixed)
+        self._graphs[key] = _Step(graph, statics, tree_leaves(statics), outputs)
+        return result
 
 
 class FrameGraphs:
-    """A frame program captured per (``proj_th``, image signatures).
+    """A frame program captured per (``proj_th``, input signatures): one
+    ``StepGraph`` a threshold, whose inputs are the frame's tensors and the
+    reference keyframe as an int32 [1] tensor, with the map storage passed
+    as ``fixed``.
 
     ``program(img_l, img_r, last, velocity, local, mapstate, ref_kf, *,
     proj_th)`` returns a tuple of tensors (``SLAM.frame_program`` without
@@ -113,7 +173,7 @@ class FrameGraphs:
     def __init__(self, program: Callable, *, capture: bool = True):
         self.program = program
         self.capture = capture
-        self._graphs: Dict[tuple, _Captured] = {}
+        self._steps: Dict[float, tuple] = {}   # proj_th -> (StepGraph, map storage pointers)
         self.replays = 0
         self.capture_log: list = []   # (proj_th, image shapes) of each capture
 
@@ -124,51 +184,30 @@ class FrameGraphs:
 
     def clear(self) -> None:
         """Drop every graph: the map storage was re-allocated."""
-        self._graphs.clear()
+        self._steps.clear()
+
+    def _step(self, proj_th: float, map_ptrs: tuple) -> StepGraph:
+        entry = self._steps.get(proj_th)
+        if entry is None:
+            program = self.program
+
+            def frame(img_l, img_r, last, velocity, local, ref_kf, mapstate):
+                return program(img_l, img_r, last, velocity, local, mapstate, ref_kf, proj_th=proj_th)
+
+            entry = self._steps[proj_th] = (StepGraph(frame, capture=self.capture), map_ptrs)
+        if entry[1] != map_ptrs:
+            raise RuntimeError("the map storage moved under a captured frame graph")
+        return entry[0]
 
     def run(self, img_l, img_r, last, velocity, local, mapstate, ref_kf: int, *, proj_th: float):
-        key = (proj_th, _signature(img_l), _signature(img_r))
-        g = self._graphs.get(key)
-        if g is None:
-            return self._first(key, (img_l, img_r, last, velocity, local), mapstate, ref_kf, proj_th)
-        if g.map_ptrs != tuple(t.data_ptr() for t in mapstate):
-            raise RuntimeError("the map storage moved under a captured frame graph")
-        torch._foreach_copy_(g.in_leaves, tree_leaves((img_l, img_r, last, velocity, local)))
-        g.ref_kf.fill_(int(ref_kf))
-        if g.graph is not None:
-            g.graph.replay()
-            outputs = g.outputs
-        else:
-            outputs = self.program(*g.inputs, mapstate, g.ref_kf, proj_th=proj_th)
-        self.replays += 1
-        return tree_map(torch.clone, outputs)
-
-    def _first(self, key, inputs, mapstate, ref_kf: int, proj_th: float):
-        """Allocate the static inputs, run the frame eagerly on them (on a
-        side stream for a capture), then capture; returns the eager run."""
-        statics = tree_map(torch.clone, inputs)
-        dev = inputs[0].device
-        ref = torch.full((1,), int(ref_kf), dtype=torch.int32, device=dev)
-        map_ptrs = tuple(t.data_ptr() for t in mapstate)
-        self.capture_log.append((proj_th, key[1][0], key[2][0]))
-        if not self.capture:
-            self._graphs[key] = _Captured(None, statics, tree_leaves(statics), ref, None, map_ptrs)
-            return self.run(*inputs, mapstate, ref_kf, proj_th=proj_th)
-
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            result = self.program(*statics, mapstate, ref, proj_th=proj_th)
-        main.wait_stream(side)
-        for t in tree_leaves(result):
-            t.record_stream(main)
-
-        graph = torch.cuda.CUDAGraph()
-        with _capturing(), torch.cuda.graph(graph):
-            outputs = self.program(*statics, mapstate, ref, proj_th=proj_th)
-        self._graphs[key] = _Captured(graph, statics, tree_leaves(statics), ref, outputs, map_ptrs)
-        return result
+        step = self._step(proj_th, tuple(t.data_ptr() for t in mapstate))
+        ref = torch.full((1,), int(ref_kf), dtype=torch.int32, device=img_l.device)
+        captures, replays = step.captures, step.replays
+        out = step(img_l, img_r, last, velocity, local, ref, fixed=(mapstate,))
+        if step.captures > captures:
+            self.capture_log.append((proj_th, tuple(img_l.shape), tuple(img_r.shape)))
+        self.replays += step.replays - replays
+        return out
 
 
 class _Slot:

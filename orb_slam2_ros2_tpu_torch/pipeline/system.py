@@ -626,6 +626,10 @@ class SLAM:
         self._kfs_since_ba = 0
         self._tail_counter = 0
         self.frame_times_ms: list = []
+        # True: each stage (frontend, track, bookkeep, map_front, map_tail)
+        # appends its seconds to stage_times, behind a synchronise per stage
+        self.profile = False
+        self.stage_times: dict = {}
         # torch.cuda.set_sync_debug_mode() value applied around the frame
         # program and the keyframe programs only ("error" makes any host
         # synchronisation inside them raise); None leaves the mode alone
@@ -846,6 +850,27 @@ class SLAM:
             end.record()
             self.program_events.append((name, start, end))
 
+    def _timed(self, name: str, fn, *args, **kw):
+        """``fn(*args, **kw)``; with ``profile`` on, its seconds are appended
+        to ``stage_times[name]``: on the card between two CUDA events, waited
+        for (the counterpart of ``block_until_ready``), else by the host's
+        clock."""
+        if not self.profile:
+            return fn(*args, **kw)
+        if self.device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds = time.perf_counter() - t0
+        self.stage_times.setdefault(name, []).append(seconds)
+        return out
+
     def _keyframe_program(self, name: str):
         """A keyframe program, loop-detection dispatch or GBA chunk: no host
         read allowed (``frame_sync_debug_mode``)."""
@@ -896,11 +921,11 @@ class SLAM:
             return self._run_split_frame(img_l, img_r, last, velocity, local, proj_th)
         with self._sync_guard(self.frame_sync_debug_mode):
             if self._frame_graphs is not None:
-                return self._frame_graphs.run(img_l, img_r, last, velocity, local, self.map,
-                                              self.ref_kf, proj_th=proj_th)
-            new_state, velocity, host_vec, self.map, local_new = self.frame_program(
-                img_l, img_r, last, velocity, local, self.map, kf_index(self.ref_kf, self.device),
-                proj_th=proj_th)
+                return self._timed("track", self._frame_graphs.run, img_l, img_r, last, velocity, local,
+                                   self.map, self.ref_kf, proj_th=proj_th)
+            new_state, velocity, host_vec, self.map, local_new = self._timed(
+                "track", self.frame_program, img_l, img_r, last, velocity, local, self.map,
+                kf_index(self.ref_kf, self.device), proj_th=proj_th)
         return new_state, velocity, host_vec, local_new
 
     def _run_split_frame(self, img_l, img_r, last: SlamFrame, velocity, local: LocalMap, proj_th: float):
@@ -909,16 +934,13 @@ class SLAM:
         device with the frame's (mp_ids, visible, found).  Returns what
         ``_run_frame`` returns, the local map on the map device."""
         with self._sync_guard(self.frame_sync_debug_mode):
-            if self._track_graphs is not None:
-                new_state, velocity, hv0, visible, found = self._track_graphs.run(
-                    img_l, img_r, last, velocity, local, self._view, 0, proj_th=proj_th)
-            else:
-                new_state, velocity, hv0, visible, found = self.track_program(
-                    img_l, img_r, last, velocity, local, self._view, proj_th=proj_th)
+            track = self._track_graphs.run if self._track_graphs is not None else self.track_program
+            new_state, velocity, hv0, visible, found = self._timed(
+                "track", track, img_l, img_r, last, velocity, local, self._view, 0, proj_th=proj_th)
         with self._keyframe_program("bookkeep"):
-            self.map, hv1, local_map = self.bookkeep_program(
-                self.map, self._local_map, *self._to_map((new_state.mp_ids, visible, found)),
-                kf_index(self.ref_kf, self.map_device))
+            self.map, hv1, local_map = self._timed(
+                "bookkeep", self.bookkeep_program, self.map, self._local_map,
+                *self._to_map((new_state.mp_ids, visible, found)), kf_index(self.ref_kf, self.map_device))
         return new_state, velocity, _join_stats(hv0, self._to_tracker(hv1)), local_map
 
     def track(self, img_left, img_right) -> Tuple[Optional[np.ndarray], dict]:
@@ -939,7 +961,7 @@ class SLAM:
         self.frame_id += 1
 
         if self.state in (TrackState.NOT_IMAGE_YET, TrackState.NOT_INITING):
-            frame = self._frontend(img_left, img_right, self.cam)
+            frame = self._timed("frontend", self._frontend, img_left, img_right, self.cam)
             if self.n_keyframes > 0:
                 # a map exists (loaded or surviving): localize in it instead
                 # of re-initializing (the reference's OnlyTracking/reuse mode)
@@ -947,7 +969,7 @@ class SLAM:
             return self._initialize(frame, fid)
 
         if self.state == TrackState.LOST:
-            frame = self._frontend(img_left, img_right, self.cam)
+            frame = self._timed("frontend", self._frontend, img_left, img_right, self.cam)
             return self._relocalize(frame, fid)
 
         if self._pipelined:
@@ -1225,11 +1247,10 @@ class SLAM:
         pipelined resolver passes the frame it dispatched the weak one from)."""
         last = self.last if last is None else last
         kf = self.ref_kf
-        M = self.map.mp_capacity
-        # with the split: the keyframe's rows on the tracker, the view's points
+        # with the split: the keyframe's rows on the tracker (its points are
+        # the view's, in _pose_from_mp)
         kf_mp_idx, kf_feat_valid, kf_desc = self._to_tracker(
             (self.map.kf_mp_idx[kf], self.map.kf_feat_valid[kf], self.map.kf_desc[kf]))
-        mp_pos = self._view[0] if self._split else self.map.mp_pos
         has_mp = kf_feat_valid & (kf_mp_idx >= 0)
         dist = hamming_matrix(frame.feats.desc, kf_desc)
         masked = torch.where(frame.feats.valid[:, None] & has_mp[None, :], dist, 1 << 20)
@@ -1242,14 +1263,7 @@ class SLAM:
         if int(ok.to(torch.int32).sum()) < 10:
             return False
         mp = kf_mp_idx[bj]
-        inv_s2 = _octave_inv_sigma2(frame.feats.octave, self.cfg.orb.scale_factor)
-        obs = PoseObs(pw=mp_pos[mp.clamp(0, M - 1).long()], uv=frame.feats.uv,
-                      right_u=frame.right_u, inv_sigma2=inv_s2,
-                      is_stereo=frame.right_u > 0, valid=ok)
-        Tcw, inlier, n_in = optimize_pose(
-            self.cam, last.Tcw, obs,
-            chi2_mono=self.cfg.ba.chi2_mono, chi2_stereo=self.cfg.ba.chi2_stereo,
-        )
+        Tcw, inlier, n_in = self._pose_from_mp(frame, last.Tcw, torch.where(ok, mp, -1))
         if int(n_in) < self.cfg.tracking.min_track_inliers:
             return False
         mp_ids = torch.where(ok & inlier, mp, -1)
@@ -1258,6 +1272,20 @@ class SLAM:
         stats["n_tracked"] = int((mp_ids >= 0).sum())
         self._ref_result = (SlamFrame(frame=frame, Tcw=Tcw, mp_ids=mp_ids), velocity, Tcw)
         return True
+
+    def _pose_from_mp(self, frame: StereoFrame, Tcw0, cur_mp):
+        """Pose-only optimization over the per-feature map-point table
+        ``cur_mp`` (−1 = none), from ``Tcw0``, against the tracker's points
+        (the split's published view)."""
+        mp_pos = self._view[0] if self._split else self.map.mp_pos
+        M = mp_pos.shape[0]
+        obs = PoseObs(
+            pw=mp_pos[cur_mp.clamp(0, M - 1).long()], uv=frame.feats.uv, right_u=frame.right_u,
+            inv_sigma2=_octave_inv_sigma2(frame.feats.octave, self.cfg.orb.scale_factor),
+            is_stereo=frame.right_u > 0, valid=cur_mp >= 0,
+        )
+        return optimize_pose(self.cam, Tcw0, obs,
+                             chi2_mono=self.cfg.ba.chi2_mono, chi2_stereo=self.cfg.ba.chi2_stereo)
 
     def _relocalize(self, frame: StereoFrame, fid: int):
         """Relocalization against the keyframe database (reference
@@ -1351,8 +1379,8 @@ class SLAM:
         kf_id = self._n_kf
         cur_m = self._to_map(cur)
         with self._keyframe_program("map_front"):
-            self.map, local, last_mp_ids, last_Tcw = self.map_front_program(
-                self.map, cur_m.frame, cur_m.Tcw, cur_m.mp_ids, fid, kf_id)
+            self.map, local, last_mp_ids, last_Tcw = self._timed(
+                "map_front", self.map_front_program, self.map, cur_m.frame, cur_m.Tcw, cur_m.mp_ids, fid, kf_id)
         self._publish_local(local, refresh_view=True)
         last_mp_ids, last_Tcw = self._to_tracker((last_mp_ids, last_Tcw))
         self._n_kf += 1
@@ -1412,7 +1440,7 @@ class SLAM:
         do_ba = mp.ba_stride > 0 and self._tail_counter % mp.ba_stride == 0
         do_cull = mp.kf_cull_stride > 0 and (self._tail_counter + 1) % mp.kf_cull_stride == 0
         with self._keyframe_program("map_tail"):
-            self.map, local = self.map_tail_program(self.map, kf_id, do_ba, do_cull)
+            self.map, local = self._timed("map_tail", self.map_tail_program, self.map, kf_id, do_ba, do_cull)
         self._publish_local(local, refresh_view=True)
         if self.enable_loop_closing:
             self._dispatch_loop_detect(kf_id)

@@ -77,10 +77,10 @@ def vocabs(request, world):
     """(JAX vocabulary, port vocabulary, JAX database, port database)."""
     if request.param == "trained_6x3":
         vj = jvoc.train_vocabulary(world["train"], branching=6, depth=3, seed=0)
-        vt = tvoc.train_vocabulary(world["train"], branching=6, depth=3, seed=0)
+        vt = tvoc.train_vocabulary(world["train"], branching=6, depth=3, seed=0, device="cpu")
     else:
         vj = jvoc.load_vocabulary(os.path.join(JAX_ASSETS, "vocab_synth.npz"))
-        vt = tvoc.load_vocabulary(os.path.join(PORT_ASSETS, "vocab_synth.npz"))
+        vt = tvoc.load_vocabulary(os.path.join(PORT_ASSETS, "vocab_synth.npz"), "cpu")
         assert vj.n_words >= tdb.WORD_GATE_MIN_VOCAB == jdb.WORD_GATE_MIN_VOCAB
     assert_vocab_equal(vt, vj)
     dbj = jax.jit(lambda s: jdb.rebuild(vj, s, max_words=MAX_WORDS))(world["state"])
@@ -94,22 +94,23 @@ def vocabs(request, world):
 def test_copied_assets_equal(name):
     a, b = os.path.join(JAX_ASSETS, name), os.path.join(PORT_ASSETS, name)
     assert filecmp.cmp(a, b, shallow=False)
-    assert_vocab_equal(tvoc.load_vocabulary(b), jvoc.load_vocabulary(a))
+    assert_vocab_equal(tvoc.load_vocabulary(b, "cpu"), jvoc.load_vocabulary(a))
 
 
 def test_train_vocabulary_and_npz_round_trip(world, tmp_path):
     r = np.random.default_rng(4)
     descs = np.concatenate([world["train"][:1500], r.integers(0, 2**32, (500, 8), dtype=np.uint32)])
     vj = jvoc.train_vocabulary(descs, branching=4, depth=3, seed=2)
-    vt = tvoc.train_vocabulary(descs, branching=4, depth=3, seed=2)
+    vt = tvoc.train_vocabulary(descs, branching=4, depth=3, seed=2, device="cpu")
     assert_vocab_equal(vt, vj)
-    assert_vocab_equal(tvoc.train_vocabulary(descs.view(np.int32), branching=4, depth=3, seed=2), vj)
+    assert_vocab_equal(tvoc.train_vocabulary(descs.view(np.int32), branching=4, depth=3, seed=2,
+                                            device="cpu"), vj)
     # each package reads the other's file
     pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     jvoc.save_vocabulary(vj, pj)
     tvoc.save_vocabulary(vt, pt)
-    assert_vocab_equal(tvoc.load_vocabulary(pj), vj)
-    assert_vocab_equal(tvoc.load_vocabulary(pt), jvoc.load_vocabulary(pt))
+    assert_vocab_equal(tvoc.load_vocabulary(pj, "cpu"), vj)
+    assert_vocab_equal(tvoc.load_vocabulary(pt, "cpu"), jvoc.load_vocabulary(pt))
     with np.load(pj) as zj, np.load(pt) as zt:
         assert sorted(zj.files) == sorted(zt.files)
         for f in zj.files:
@@ -132,7 +133,7 @@ def test_load_dbow_text_matches_jax(tmp_path):
     for name, extra in (("clean.txt", []), ("junk.txt", ["trailing junk"])):
         p = tmp_path / name
         p.write_text("\n".join(lines + extra) + "\n")
-        assert_vocab_equal(tvoc.load_dbow_text(str(p)), jvoc.load_dbow_text(str(p)))
+        assert_vocab_equal(tvoc.load_dbow_text(str(p), "cpu"), jvoc.load_dbow_text(str(p)))
 
 
 # --------------------------------------------------------------- transform --
@@ -181,7 +182,7 @@ def test_rebuild_matches_jax_and_rowwise_add(world, vocabs):
     # an odd chunk (ragged last batch) changes nothing
     db5 = tdb.rebuild(vt, state, max_words=MAX_WORDS, chunk=5)
     assert torch.equal(db5.word_ids, dbt.word_ids) and torch.equal(db5.weights, dbt.weights)
-    db = tdb.KeyFrameDB.empty(state.kf_capacity, MAX_WORDS)
+    db = tdb.KeyFrameDB.empty(state.kf_capacity, MAX_WORDS, "cpu")
     assert db.max_words == MAX_WORDS
     for k in world["ids"].tolist():
         db = tdb.add_keyframe(db, vt, k, state.kf_desc[k], state.kf_feat_valid[k])
@@ -189,7 +190,7 @@ def test_rebuild_matches_jax_and_rowwise_add(world, vocabs):
     np.testing.assert_allclose(db.weights.numpy(), dbt.weights.numpy(), atol=1e-7)
     # a keyframe id that lives on the device writes the same row
     k = int(world["ids"][2])
-    one = tdb.add_keyframe(tdb.KeyFrameDB.empty(state.kf_capacity, MAX_WORDS), vt, torch.tensor(k),
+    one = tdb.add_keyframe(tdb.KeyFrameDB.empty(state.kf_capacity, MAX_WORDS, "cpu"), vt, torch.tensor(k),
                            state.kf_desc[k], state.kf_feat_valid[k])
     assert torch.equal(one.word_ids[k], db.word_ids[k]) and int((one.word_ids >= 0).any(1).sum()) == 1
     back = convert.keyframe_db_to_torch(convert.to_numpy(dbt), "cpu")

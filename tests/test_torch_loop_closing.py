@@ -237,7 +237,7 @@ def closers(cfg_j, cfg_t, st):
     world's descriptors."""
     descs = st["kf_desc"][st["kf_feat_valid"]]
     vj = jvoc.train_vocabulary(descs, branching=8, depth=3, seed=0)
-    vt = tvoc.train_vocabulary(descs, branching=8, depth=3, seed=0)
+    vt = tvoc.train_vocabulary(descs, branching=8, depth=3, seed=0, device="cpu")
     return jlc.LoopCloser(cfg_j, vj), tlc.LoopCloser(cfg_t, vt)
 
 

@@ -47,7 +47,8 @@ def setup_slams():
     descs = st["kf_desc"][st["kf_feat_valid"]]
     js, ts = JSLAM(cfg_j), TSLAM(cfg_t, device="cpu")
     js.loop_closer = jlc.LoopCloser(cfg_j, jvoc.train_vocabulary(descs, branching=8, depth=3, seed=0))
-    ts.loop_closer = tlc.LoopCloser(cfg_t, tvoc.train_vocabulary(descs, branching=8, depth=3, seed=0))
+    ts.loop_closer = tlc.LoopCloser(cfg_t, tvoc.train_vocabulary(descs, branching=8, depth=3, seed=0,
+                                                                   device="cpu"))
     rel = np.eye(4, dtype=np.float32)
     rel[:3, 3] = [0.1, 0.0, 0.2]
     traj_rel = [(k, k, np.eye(4, dtype=np.float32)) for k in range(KF_CUR + 1)] + [(12, KF_CUR, rel)]

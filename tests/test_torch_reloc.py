@@ -167,13 +167,13 @@ def test_port_save_is_loaded_by_jax(built, tmp_path):
     with np.load(out + ".map.npz") as z:
         old = {k: z[k] for k in z.files if k != "kf_Tcp"}
     np.savez_compressed(str(tmp_path / "old.map.npz"), **old)
-    st, _ = tpers.load_map(str(tmp_path / "old.map.npz"))
+    st, _ = tpers.load_map(str(tmp_path / "old.map.npz"), "cpu")
     assert torch.equal(st.kf_Tcp, torch.eye(4).expand_as(st.kf_Tcp))
     assert tpers._cfg_to_dict(slam.cfg) == jpers._cfg_to_dict(reloc_cfg(jcfg, only_tracking=True))
     del old["mp_pos"]
     np.savez_compressed(str(tmp_path / "bad.map.npz"), **old)
     with pytest.raises(KeyError):
-        tpers.load_map(str(tmp_path / "bad.map.npz"))
+        tpers.load_map(str(tmp_path / "bad.map.npz"), "cpu")
 
 
 def test_other_formats_and_missing_files_raise(built, tmp_path):
@@ -233,7 +233,7 @@ def test_unported_loop_closer_methods_raise(name):
     state = convert.map_state_to_torch(st, "cpu")
     cam = TCam.from_config(cfg_t.camera, "cpu")
     lc = LoopCloser(cfg_t, tvoc.train_vocabulary(
-        np.random.default_rng(0).integers(0, 2**32, (64, 8), dtype=np.uint32), branching=2, depth=2))
+        np.random.default_rng(0).integers(0, 2**32, (64, 8), dtype=np.uint32), branching=2, depth=2, device="cpu"))
     assert lc.db.word_ids.shape == (8, 1024)
     gen = torch.Generator().manual_seed(0)
     calls = {

@@ -136,7 +136,7 @@ def test_train_vocab(root, tmp_path, capsys):
     res = run(["train-vocab", "--seq", str(root / "00"), "--frames", "2", "--branching", "3",
                "--depth", "2", "--out", out, "--device", "cpu"], capsys)
     assert res["words"] == 9 and res["descriptors"] > 500 and res["out"] == out
-    v = load_vocabulary(out)
+    v = load_vocabulary(out, "cpu")
     assert (v.branching, v.depth, v.n_words) == (3, 2, 9)
 
 
