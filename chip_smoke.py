@@ -57,7 +57,8 @@ Phases (one line each; any failure raises and exits non-zero):
      once a frame;
   9. loop closing: ``SLAM`` with loop closing on at the default
      ``SLAMConfig()`` (1024 keyframe and 262,144 point slots, so the
-     essential graph takes the PCG route) on the circle world of
+     essential graph takes the PCG route, captured at the loop programs'
+     warm-up) on the circle world of
      ``bench_loop.py`` (``circle=True``, ``box_scale=2.5``, period 96): 100
      frames, then the second lap until the background GBA has committed (at
      most 40 more frames), then ``flush()``.  Every frame must track OK, at
@@ -188,6 +189,23 @@ Phases (one line each; any failure raises and exits non-zero):
      (e) ``SLAM.profile`` over phase 6's first 10 frames: ``stage_times``
      holds ``frontend``, ``track``, ``map_front`` and ``map_tail`` with a
      positive time each run.
+ 16. keyframe and closure graphs (every phase above already runs the
+     keyframe programs and the single-process essential graph as CUDA
+     graphs): (a) phase 6's mapping world with every keyframe program that
+     fires run first eagerly on a clone of the map storage, then through
+     the SLAM's ``KeyframeGraphs`` under sync debug "error": the storage
+     and the outputs bit-equal; one capture a program; its first replay
+     traced beside the eager program's trace (one graph launch, no kernel
+     launched by the host beyond input copies, id fills and output clones);
+     printed: eager and replay spans, capture ms, the memory the graphs
+     hold and the peak; (b) phase 9's closure (its essential-graph inputs
+     kept by a spy during phase 9) through a fresh ``EssentialGraph``:
+     every call bit-equal to the eager ``optimize_essential``, one under
+     sync debug "error", one traced (22 graph launches: the problem, 20 GN
+     steps, the commit); printed: phase 9's span and its warm-up capture
+     beside the eager program's 2.9-3.7 s (``EAGER_ESSENTIAL_S``), each
+     part's capture ms and the memory held; (c) phase 14c's wall time and
+     fps curve beside the eager keyframe programs' (``EAGER_SCALE``).
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -311,6 +329,11 @@ SBA_OUTLIERS = 0.05
 CORPUS_PAIRS = 4         # frame pairs a world (the packaged corpus: every pair)
 CORPUS_DEPTH = 2         # tree depth (the packaged vocabulary: 5)
 PROFILE_FRAMES = 10
+# keyframe and closure graphs (phase 16): the eager figures they replace,
+# measured by this script on an NVIDIA H100 80GB HBM3 at 700 W at commit
+# 11141c4 (optimize_essential a closure over its runs; phase 14c)
+EAGER_ESSENTIAL_S = (2.9, 3.7)
+EAGER_SCALE = dict(wall_s=107.6, fps=[7.94, 7.93, 8.30, 6.62, 7.80, 8.14, 4.61])
 
 
 def gpu_line() -> str:
@@ -555,7 +578,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/15] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/16] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -569,7 +592,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/15", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/16", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -698,7 +721,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/15] {json.dumps(rec)}", flush=True)
+        print(f"[7/16] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -767,7 +790,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/15] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/16] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -792,7 +815,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/15", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/16", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1018,8 +1041,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/15")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/15")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/16")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/16")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1255,7 +1278,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/15] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/16] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1273,12 +1296,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/15] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/16] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/15] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/16] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1296,7 +1319,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/15] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/16] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1348,7 +1371,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/15] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/16] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1357,7 +1380,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/15", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/16", devices=MULTI_DEVICES)
     spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
              for k in ("optimize_essential", "gba_chunk")}
     b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
@@ -1365,7 +1388,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/15] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/16] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
@@ -1378,7 +1401,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/15", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/16", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
@@ -1390,7 +1413,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/15] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/16] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1413,7 +1436,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/15] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/16] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     return (loop_launches, split_launches), out
@@ -1562,7 +1585,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/15] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/16] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1689,7 +1712,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/15] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/16] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1705,9 +1728,10 @@ def run_scale(base: SLAMConfig):
     return launches, summary
 
 
-def run_long(base: SLAMConfig) -> list:
+def run_long(base: SLAMConfig) -> tuple:
     """Phase 14: the adversarial world synchronous (a) and pipelined (b),
-    then the scale run (c).  Returns the three runs' launch counts."""
+    then the scale run (c).  Returns the three runs' launch counts and the
+    scale run's summary."""
     from orb_slam2_ros2_tpu_torch.io.synthetic import AdversarialStereoDataset
 
     t0 = time.perf_counter()
@@ -1717,7 +1741,7 @@ def run_long(base: SLAMConfig) -> list:
     a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/15] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/16] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1726,12 +1750,12 @@ def run_long(base: SLAMConfig) -> list:
           f"{a_launches} / {b_launches}", flush=True)
     del frames
     c_launches, c = run_scale(base)
-    print(f"[14/15] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/16] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
           f"{c['peak_mem_mib']:.1f} MiB, {c['wall_s']:.1f} s, launches {c_launches}", flush=True)
-    return [a_launches, b_launches, c_launches]
+    return [a_launches, b_launches, c_launches], c
 
 
 def _k1_twin(canvas, table, threshold, nms=True, out=None):
@@ -1846,7 +1870,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/15] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/16] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -1939,7 +1963,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/15] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/16] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2065,7 +2089,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/15] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/16] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2110,7 +2134,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/15] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/16] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2143,7 +2167,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/15] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/16] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2158,8 +2182,274 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/15] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/16] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
+
+
+# ------------------------------------------------ keyframe and closure graphs --
+
+def _kf_key(name: str, args) -> tuple:
+    """A keyframe program's graph: the tail's is per (do_ba, do_cull)."""
+    return (name, *args[-2:]) if name == "map_tail" else (name,)
+
+
+def run_keyframe_graphs(map_cfg: SLAMConfig):
+    """16a: phase 6's mapping world, every keyframe program that fires
+    checked as it runs: first eagerly on a clone of the map storage (the
+    program before the graphs, its CUDA-event span), then through the SLAM's
+    ``KeyframeGraphs`` (a capture at its first call, a replay after) under
+    the SLAM's sync debug "error"; the storage and the outputs must equal
+    the eager program's bit for bit.  The first replay of each program is
+    traced: one graph launch, and no kernel launched by the host beyond the
+    copies of its inputs, the id fills and the clones of its outputs.
+    Returns (launch counts of the run, summary)."""
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+    from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_leaves
+
+    ds = SyntheticStereoDataset(map_cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
+                                box_scale=2.5, sky=True, device="cuda")
+    frames = [ds.frame(i) for i in range(MAP_FRAMES)]   # rendered on the card, set-up
+    slam = SLAM(map_cfg, enable_loop_closing=False, device="cuda")
+    g = slam._kf_graphs
+    eager_programs = {
+        "map_front": lambda m, *a: slam.map_front_program(m, *a),
+        "map_tail": lambda m, *a: slam.map_tail_program(m, *a),
+        "cull_kfs": lambda m, *a: (slam._cull_kfs(m, *a),),
+    }
+    calls, bad, traced = [], [], set()
+
+    def checked(name):
+        graph_fn, eager_fn = getattr(g, name), eager_programs[name]
+
+        def call(mapstate, *args):
+            key = _kf_key(name, args)
+            mode = torch.cuda.get_sync_debug_mode()   # the SLAM's "error"
+            torch.cuda.set_sync_debug_mode(0)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            clone = MapState(*(t.clone() for t in mapstate))
+            trace = (key not in traced and any(c["key"] == key for c in calls)
+                     and not torch.autograd._profiler_enabled())
+            prof = eager_prof = None
+            ev[0].record()
+            if trace:   # the eager program's kernels and launches, beside the replay's
+                eager_prof = kernel_profile(lambda: eager_fn(clone, *args))
+                want_map, *want_out = eager_prof.pop("result")
+            else:
+                want_map, *want_out = eager_fn(clone, *args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            caps0, replays0 = g.captures, g.replays
+            t0 = time.perf_counter()
+            ev[2].record()
+            if trace:
+                traced.add(key)
+                prof = kernel_profile(lambda: graph_fn(mapstate, *args))
+                out = prof.pop("result")
+            else:
+                torch.cuda.set_sync_debug_mode(mode)
+                out = graph_fn(mapstate, *args)
+                torch.cuda.set_sync_debug_mode(0)
+            ev[3].record()
+            host_ms = (time.perf_counter() - t0) * 1000.0
+            torch.cuda.synchronize()
+            rec = dict(key=key, captured=g.captures > caps0, replayed=g.replays > replays0,
+                       eager_ms=ev[0].elapsed_time(ev[1]), graph_ms=ev[2].elapsed_time(ev[3]), host_ms=host_ms)
+            fields = [n for n, a, b in zip(MapState._fields, mapstate, want_map) if not torch.equal(a, b)]
+            if fields or not _equal_trees(out, want_out if name != "map_tail" else want_out[0]):
+                bad.append(f"{key} call {len(calls)}: the graph differs from eager (map fields {fields})")
+            if prof is not None:
+                bound = len(tree_leaves(args)) + len(tree_leaves(out)) + 2
+                keys = ("graph_launches", "launches", "device_kernels", "kernel_ms", "wall_ms")
+                rec["profile"] = {k: prof[k] for k in keys}
+                rec["eager_profile"] = {k: eager_prof[k] for k in keys}
+                if prof["graph_launches"] != 1 or prof["launches"] > bound:
+                    bad.append(f"{key} traced replay: {prof['graph_launches']} graph launches, "
+                               f"{prof['launches']} host kernel launches (inputs and outputs: {bound})")
+            calls.append(rec)
+            torch.cuda.set_sync_debug_mode(mode)
+            return out
+
+        return call
+
+    for name in eager_programs:
+        setattr(g, name, checked(name))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peak0, reserved0 = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    _reset_launches()
+    records = []
+    for i, (img_l, img_r, _) in enumerate(frames):
+        slam.frame_sync_debug_mode = "error" if i >= 2 else None
+        pose, stats, ms = _track(slam, f"16a {i}", img_l, img_r, profile=i == PROFILED_CALL)
+        if slam.state != TrackState.OK or pose is None:
+            raise AssertionError(f"16a frame {i}: state {slam.state}, stats {stats}")
+        records.append(dict(ms=ms, profiled=i == PROFILED_CALL))
+    slam.flush()
+    torch.cuda.synchronize()
+    slam.frame_sync_debug_mode = None
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() - peak0
+    torch.cuda.empty_cache()   # what stays reserved: the graphs' pools and statics
+    held = torch.cuda.memory_reserved() - reserved0
+    by_key: dict = {}
+    for c in calls:
+        by_key.setdefault(" ".join(map(str, c["key"])), []).append(c)
+    summary = {}
+    for k, cs in by_key.items():
+        cap = [c for c in cs if c["captured"]]
+        rep = [c for c in cs if c["replayed"] and "profile" not in c]
+        summary[k] = dict(
+            calls=len(cs), captures=len(cap), capture_ms=[round(c["host_ms"], 3) for c in cap],
+            eager_span_ms_median=statistics.median(c["eager_ms"] for c in cs if "profile" not in c),
+            replay_span_ms_median=statistics.median(c["graph_ms"] for c in rep) if rep else None,
+            replay_host_ms_median=statistics.median(c["host_ms"] for c in rep) if rep else None,
+            traced=[dict(replay=c["profile"], eager=c["eager_profile"]) for c in cs if "profile" in c])
+        if not rep or not summary[k]["traced"] or len(cap) != 1:
+            bad.append(f"{k}: {len(cap)} captures, {len(rep)} untraced replays, "
+                       f"{len(summary[k]['traced'])} traced")
+    out = dict(frames=MAP_FRAMES, keyframes=slam._n_kf, programs=summary, graph_captures=g.captures,
+               graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
+               peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
+               frame_ms_median=_frame_ms(records))
+    print(f"[16/16] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    if bad:
+        raise AssertionError(f"16a: {bad}")
+    return launches, out
+
+
+class _EssentialCalls:
+    """While active, every ``EssentialGraph`` call keeps its host ms and
+    whether it captured; the last one also its inputs, cloned (the closure
+    phase 16b replays)."""
+
+    def __enter__(self):
+        from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+        from orb_slam2_ros2_tpu_torch.pipeline import loop_closing
+        from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
+
+        self.cls, self.calls, self.inputs = loop_closing.EssentialGraph, [], None
+        orig = self.orig = self.cls.__call__
+
+        def spy(graph, state, *args):
+            self.inputs = (MapState(*(t.clone() for t in state)), *tree_map(torch.clone, args))
+            caps, t0 = graph.captures, time.perf_counter()
+            out = orig(graph, state, *args)
+            self.calls.append(dict(host_ms=(time.perf_counter() - t0) * 1000.0, captured=graph.captures > caps))
+            return out
+
+        self.cls.__call__ = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
+    """16b: the essential graph of phase 9's closure, on the inputs its
+    ``correct`` gave it: the eager program (``optimize_essential``, the
+    mesh route's) against a fresh ``EssentialGraph`` — its first call (eager run
+    and the captures of its three parts, each part's ms), replays bit-equal
+    to eager, one under sync debug "error", one traced (a graph launch for
+    the problem, each GN step and the commit; no kernel launched by the
+    host beyond copies and clones).  Returns the summary."""
+    from functools import partial
+
+    from orb_slam2_ros2_tpu_torch.pipeline.loop_closing import EssentialGraph, optimize_essential
+    from orb_slam2_ros2_tpu_torch.solvers.pose_graph import optimize_pose_graph
+
+    state, kf_cur, kf_cand, S12, S_nc, gmask, pre = spied.inputs
+    weight = base.loop.essential_graph_weight
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1000.0
+
+    want, eager_span, eager_host = timed(lambda: optimize_essential(
+        state, kf_cur, kf_cand, S12, S_nc, gmask, pre, essential_weight=weight,
+        pose_graph_fn=partial(optimize_pose_graph, iters=ESSENTIAL_ITERS)))
+    g = EssentialGraph(essential_weight=weight)
+    part_ms = []
+    for name, part in zip(("problem", "gn_step", "commit"), g.parts):
+        first = part._first
+
+        def timed_first(*a, _first=first, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _first(*a, **kw)
+            torch.cuda.synchronize()
+            part_ms.append((_name, (time.perf_counter() - t0) * 1000.0))
+            return out
+
+        part._first = timed_first
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+
+    def run():
+        return g(state, kf_cur, kf_cand, S12, S_nc, gmask, pre)
+
+    first, first_span, first_host = timed(run)
+    torch.cuda.empty_cache()   # what stays reserved: the three graphs' pools, statics and the output
+    held = torch.cuda.memory_reserved() - reserved0
+    spans, hosts, bad = [], [], []
+    outs = [first]
+    for i in range(3):
+        if i == 1:
+            with _sync_error():
+                out = run()
+            torch.cuda.synchronize()
+        else:
+            out, span, host = timed(run)
+            spans.append(span)
+            hosts.append(host)
+        outs.append(out)
+    for i, out in enumerate(outs):
+        for f in ("kf_Tcw", "mp_pos"):
+            if not torch.equal(getattr(out, f), getattr(want, f)):
+                bad.append(f"call {i}: {f} differs from the eager program")
+    prof = kernel_profile(run)
+    if not torch.equal(prof.pop("result").kf_Tcw, want.kf_Tcw):
+        bad.append("the traced replay differs from the eager program")
+    if prof["graph_launches"] != ESSENTIAL_ITERS + 2 or prof["launches"] > 200:
+        bad.append(f"traced call: {prof['graph_launches']} graph launches, {prof['launches']} host kernel launches")
+    summary = dict(
+        kf_capacity=state.kf_capacity, route="dense" if state.kf_capacity <= 256 else "pcg",
+        phase9_optimize_essential_ms=loop["span_ms"].get("optimize_essential"),
+        phase9_essential_calls=spied.calls, eager_essential_s_before=EAGER_ESSENTIAL_S,
+        eager_span_ms=eager_span, eager_host_ms=eager_host,
+        first_call_ms=first_host, capture_ms_by_part=part_ms,
+        held_by_graphs_mib=held / 2 ** 20,
+        replay_span_ms=spans, replay_host_ms=hosts, captures=g.captures, replays=g.replays,
+        traced={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms", "wall_ms",
+                                     "api")})
+    print(f"[16/16] b. essential graph: {json.dumps(summary)}", flush=True)
+    if bad:
+        raise AssertionError(f"16b: {bad}")
+    return summary
+
+
+def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCalls, loop: dict,
+                    scale: dict) -> list:
+    """Phase 16: the keyframe programs (a) and the essential graph (b) as
+    CUDA graphs against their eager programs, and (c) the scale run of
+    phase 14c beside the eager programs' (``EAGER_SCALE``).  Returns the
+    launch counts of (a)."""
+    t0 = time.perf_counter()
+    a_launches, _ = run_keyframe_graphs(map_cfg)
+    run_essential_graph(base, spied, loop)
+    spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
+    print(f"[16/16] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+          f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
+          f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
+          flush=True)
+    print(f"[16/16] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [a_launches]
 
 
 def _frame_ms(records, keyframe=None):
@@ -2174,12 +2464,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/15] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/16] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/15] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/16] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -2195,21 +2485,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/15] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/16] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/15] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/16] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/15] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/16] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/15] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/16] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -2218,7 +2508,7 @@ def main() -> int:
     map_summary.update(frame_ms_keyframe=_frame_ms(map_records, True), frame_ms_other=_frame_ms(map_records, False))
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/15] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/16] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -2226,15 +2516,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/15] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/16] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/15] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/16] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
-    _, loop_launches, loop = run_loop(base)
-    print(f"[9/15] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    with _EssentialCalls() as spied:
+        _, loop_launches, loop = run_loop(base)
+    print(f"[9/16] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -2254,7 +2545,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/15] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/16] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -2265,7 +2556,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/15] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/16] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -2274,23 +2565,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/15] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/16] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/15] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/16] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/15] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/16] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/15")
-    print(f"[11/15] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/16")
+    print(f"[11/16] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -2301,33 +2592,34 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/15] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/15] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/16] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/16] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/15] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/16] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/15] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/16] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/15] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/16] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    long_launches = run_long(base)
+    long_launches, scale = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
+    graph_launches = run_graph_phase(map_cfg, base, spied, loop, scale)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
                      blackout_launches, *shell_launches, *multi_launches, *long_launches,
-                     *remaining_launches)
+                     *remaining_launches, *graph_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

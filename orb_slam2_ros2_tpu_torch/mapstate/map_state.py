@@ -173,6 +173,23 @@ def grow_map(state: MapState, *, kf_capacity: Optional[int] = None,
     )
 
 
+def copy_into(storage: MapState, new: MapState) -> int:
+    """Write the fields of ``new`` that are not ``storage``'s own tensors into
+    ``storage``, in place (a field that shares ``storage``'s memory is cloned
+    first), and return the bytes written.  How a map that outlasts its
+    programs takes a program's result: a captured graph reads the storage at
+    fixed addresses."""
+    dst, src = [], []
+    for a, b in zip(storage, new):
+        if a is b or (a.data_ptr() == b.data_ptr() and a.stride() == b.stride()):
+            continue
+        dst.append(a)
+        src.append(b.clone() if a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr() else b)
+    if dst:
+        torch._foreach_copy_(dst, src)
+    return sum(t.numel() * t.element_size() for t in dst)
+
+
 # --------------------------------------------------------------------------
 # observation bookkeeping helpers
 # --------------------------------------------------------------------------
@@ -357,7 +374,7 @@ def insert_keyframe(
     frame: StereoFrame,
     Tcw: torch.Tensor,
     tracked_mp: torch.Tensor,
-    frame_id: int,
+    frame_id,
     cam,
     *,
     depth_threshold: float,
@@ -366,7 +383,8 @@ def insert_keyframe(
     min_covis_weight: int = 15,
     seed_floor: int = 100,
 ) -> Tuple[MapState, torch.Tensor]:
-    """Insert a keyframe (out of place).  Mirrors Tracking::insertKeyFrame +
+    """Insert a keyframe (out of place); ``frame_id`` is a host int or an int
+    [1] device tensor.  Mirrors Tracking::insertKeyFrame +
     LocalMapping::processNewKeyFrame (reference Tracking.cc:167-185,
     LocalMapping.cc:121-148): copy the feature table, attach tracked map
     points, seed new map points from close stereo depth (topped up with the
@@ -387,7 +405,7 @@ def insert_keyframe(
     st = state._replace(
         kf_Tcw=put(state.kf_Tcw, Tcw),
         kf_valid=state.kf_valid.index_fill(0, k, True),
-        kf_frame_id=state.kf_frame_id.index_fill(0, k, int(frame_id)),
+        kf_frame_id=state.kf_frame_id.index_copy(0, k, kf_index(frame_id, dev).to(torch.int32)),
         kf_uv=put(state.kf_uv, f.uv),
         kf_right_u=put(state.kf_right_u, frame.right_u),
         kf_depth=put(state.kf_depth, frame.depth),

@@ -4,10 +4,11 @@ reference src/LocalMapping.cc createNewMapPoints :165-339, fuseMapPoints
 :352-405, cullingMapPoints :674-714, cullingKeyFrames :421-614).
 
 Each op is one pass of tensor ops over padded arrays and never synchronises
-with the host.  ``kf_id`` is the new keyframe's id as a host int (the
-system's ``_n_kf`` mirror); ids chosen on the device (neighbours, cull
-candidates) stay tensors and index through [1]-shaped long tensors, since a
-0-d tensor index would be read back to the host.  Scatters whose targets can
+with the host.  ``kf_id`` is the new keyframe's id, a host int (the
+system's ``_n_kf`` mirror) or an int [1] device tensor (a captured keyframe
+program's); it and the ids chosen on the device (neighbours, cull
+candidates) index through [1]-shaped long tensors (``kf_index``, ``_row``),
+since a 0-d tensor index would be read back to the host.  Scatters whose targets can
 repeat keep the last writer (``utils.set_drop``), as XLA:CPU does.
 """
 
@@ -39,6 +40,11 @@ from .map_state import (
 BIG = 1 << 20
 
 
+def _row(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Row ``k`` ([1] long) of ``x``, gathered on the device."""
+    return x.index_select(0, k)[0]
+
+
 def _set_covis_row(covis: torch.Tensor, k: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     """``covis.at[k, :].set(row).at[:, k].set(row)`` for a [1] long ``k``."""
     return covis.index_copy(0, k, row[None]).index_copy(1, k, row[:, None])
@@ -61,7 +67,7 @@ def _fundamental_from_poses(cam: CameraParams, Tcw1: torch.Tensor, Tcw2: torch.T
 
 def triangulate_new_points(
     state: MapState,
-    kf_id: int,
+    kf_id,
     cam: CameraParams,
     *,
     n_neighbors: int = 10,
@@ -87,21 +93,21 @@ def triangulate_new_points(
     J = n_neighbors
     dev = state.kf_Tcw.device
     k = kf_index(kf_id, dev)
-    w = state.covis[kf_id] * state.kf_valid.to(torch.int32)
+    w = _row(state.covis, k) * state.kf_valid.to(torch.int32)
     nb_w, nb_ids = topk_bounded(w, J)
 
-    Tcw1 = state.kf_Tcw[kf_id]
+    Tcw1 = _row(state.kf_Tcw, k)
     Twc1 = se3.inverse(Tcw1)
     c1 = se3.t_of(Twc1)
     arangeN = torch.arange(N, dtype=torch.int32, device=dev)
     # compact the new-KF side to its unmatched features [Nc]
-    free1_full = state.kf_feat_valid[kf_id] & (state.kf_mp_idx[kf_id] < 0)
+    free1_full = _row(state.kf_feat_valid, k) & (_row(state.kf_mp_idx, k) < 0)
     sel_v, ids1 = topk_bounded(torch.where(free1_full, N - arangeN, 0), Nc)
     free1 = sel_v > 0
-    uv1 = state.kf_uv[kf_id][ids1]
-    oct1 = state.kf_octave[kf_id][ids1]
-    desc1 = state.kf_desc[kf_id][ids1]
-    depth1 = state.kf_depth[kf_id][ids1]
+    uv1 = _row(state.kf_uv, k)[ids1]
+    oct1 = _row(state.kf_octave, k)[ids1]
+    desc1 = _row(state.kf_desc, k)[ids1]
+    depth1 = _row(state.kf_depth, k)[ids1]
 
     # per-neighbour gathers, compacted to unmatched features [J, Nc, ...]
     Tcw2 = state.kf_Tcw[nb_ids]
@@ -116,7 +122,7 @@ def triangulate_new_points(
     desc2 = state.kf_desc[jn, ids2]
     depth2 = state.kf_depth[jn, ids2]
     base_ok = torch.linalg.vector_norm(c2 - c1[None], dim=1) > baseline
-    ok_nb = (nb_w > 0) & (nb_ids != kf_id) & base_ok
+    ok_nb = (nb_w > 0) & (nb_ids != k) & base_ok
 
     # dense epipolar-gated matching, all neighbours at once
     dist = hamming_matrix(desc1[None], desc2)                           # [J, Nc, Nc]
@@ -201,15 +207,15 @@ def triangulate_new_points(
     new_ids = torch.where(create, new_ids, -1).to(torch.int32)
     tgt = torch.where(create, new_ids, M)
     # fresh points carry exactly two observations, in list slots 0 and 1
-    obs_kf_row = torch.stack([torch.where(create, kf_id, -1), torch.where(create, kn_sel, -1)], dim=1)
+    obs_kf_row = torch.stack([torch.where(create, k, -1), torch.where(create, kn_sel, -1)], dim=1)
     obs_feat_row = torch.stack([torch.where(create, ids1, -1), torch.where(create, bj_sel, -1)], dim=1)
     pad = torch.full((Nc, O - 2), -1, dtype=torch.int32, device=dev)
     st = state._replace(
         mp_pos=set_drop(state.mp_pos, tgt, pw),
         mp_desc=set_drop(state.mp_desc, tgt, desc1),
         mp_valid=set_drop(state.mp_valid, tgt, True),
-        mp_ref_kf=set_drop(state.mp_ref_kf, tgt, kf_id),
-        mp_first_kf=set_drop(state.mp_first_kf, tgt, kf_id),
+        mp_ref_kf=set_drop(state.mp_ref_kf, tgt, k.expand(Nc)),
+        mp_first_kf=set_drop(state.mp_first_kf, tgt, k.expand(Nc)),
         mp_n_obs=set_drop(state.mp_n_obs, tgt, 2),
         mp_visible=set_drop(state.mp_visible, tgt, 1),
         mp_found=set_drop(state.mp_found, tgt, 1),
@@ -217,7 +223,7 @@ def triangulate_new_points(
         mp_obs_feat=set_drop(state.mp_obs_feat, tgt, torch.cat([obs_feat_row.to(torch.int32), pad], dim=1)),
         next_mp=torch.clamp(next_mp0 + create.to(torch.int32).sum(), max=M).to(torch.int32),
     )
-    row = set_drop(st.kf_mp_idx[kf_id], torch.where(create, ids1, N), new_ids)
+    row = set_drop(_row(st.kf_mp_idx, k), torch.where(create, ids1, N), new_ids)
     kf_mp_idx = st.kf_mp_idx.index_copy(0, k, row[None])
     # neighbour-side slots (unique per neighbour, see col_best above)
     kf_mp_idx = _set_drop_2d(kf_mp_idx, torch.where(create, kn_sel, K), bj_sel.clamp(0, N - 1), new_ids)
@@ -233,7 +239,7 @@ def triangulate_new_points(
 
 def cull_mappoints(
     state: MapState,
-    current_kf: int,
+    current_kf,
     *,
     cull_score: float = 0.25,
     settle_kfs: int = 3,
@@ -255,6 +261,7 @@ def cull_mappoints(
     found, visible = state.mp_found[il], state.mp_visible[il]
     first_kf, n_obs = state.mp_first_kf[il], state.mp_n_obs[il]
     score = found.float() / torch.clamp(visible.float(), min=1.0)
+    current_kf = kf_index(current_kf, dev)
     recent = (first_kf >= 0) & (current_kf <= first_kf + settle_kfs)
     bad_obs = (current_kf >= first_kf + 2) & (n_obs < 2)
     cull = state.mp_valid[il] & recent & ((score < cull_score) | bad_obs)
@@ -270,7 +277,7 @@ def cull_mappoints(
 
 def cull_keyframes(
     state: MapState,
-    kf_id: int,
+    kf_id,
     *,
     n_candidates: int = 10,
     redundancy: float = 0.9,
@@ -289,7 +296,8 @@ def cull_keyframes(
     N = state.kf_mp_idx.shape[1]
     M = state.mp_capacity
     dev = state.kf_Tcw.device
-    w = state.covis[kf_id] * state.kf_valid.to(torch.int32)
+    k = kf_index(kf_id, dev)
+    w = _row(state.covis, k) * state.kf_valid.to(torch.int32)
     wv, cand_ids = topk_bounded(w, n_candidates)
 
     # batched redundancy check over all candidates [J, N, O]
@@ -311,7 +319,7 @@ def cull_keyframes(
     st = state
     for j in range(n_candidates):
         kj = cand_ids[j:j + 1]                                          # [1]
-        cand_ok = ((wv[j:j + 1] > 0) & (kj != kf_id) & (kj != 0)
+        cand_ok = ((wv[j:j + 1] > 0) & (kj != k) & (kj != 0)
                    & st.kf_valid[kj] & ~has_loop_edge[kj])
         has, mc = has_b[j], mc_b[j]
         obs_live = finer_b[j] & st.kf_valid[obs_kfc_b[j]]
@@ -412,7 +420,7 @@ def _apply_fuse_matches(
 
 def fuse_candidates_into_keyframe(
     state: MapState,
-    kf_id: int,
+    kf_id,
     cam: CameraParams,
     local: LocalMap,
     *,
@@ -435,12 +443,12 @@ def fuse_candidates_into_keyframe(
     M = state.mp_capacity
     dev = state.kf_Tcw.device
     k = kf_index(kf_id, dev)
-    cur_mp = state.kf_mp_idx[kf_id]
+    cur_mp = _row(state.kf_mp_idx, k)
     # the keyframe's own points are not candidates
     own = mask_from_ids(cur_mp, M)
     cand_valid = local.valid & ~own[local.mp_ids.clamp(0, M - 1).long()]
     m = search_mappoints_projection(
-        cam, state.kf_Tcw[kf_id],
+        cam, _row(state.kf_Tcw, k),
         local.pos, local.normal, local.min_dist, local.max_dist, local.desc,
         cand_valid, _kf_features(state, k), torch.zeros(N, dtype=torch.bool, device=dev),
         th=th, width=width, height=height, scale_factor=scale_factor,
@@ -458,7 +466,7 @@ def fuse_candidates_into_keyframe(
 
 def fuse_into_keyframe(
     state: MapState,
-    kf_id: int,
+    kf_id,
     cam: CameraParams,
     *,
     width: int,
@@ -482,7 +490,7 @@ def fuse_into_keyframe(
 
 def fuse_keyframe_into_neighbors(
     state: MapState,
-    kf_id: int,
+    kf_id,
     cam: CameraParams,
     *,
     n_neighbors: int = 5,
@@ -504,16 +512,16 @@ def fuse_keyframe_into_neighbors(
     N = state.kf_uv.shape[1]
     dev = state.kf_Tcw.device
     k = kf_index(kf_id, dev)
-    w = state.covis[kf_id] * state.kf_valid.to(torch.int32)
+    w = _row(state.covis, k) * state.kf_valid.to(torch.int32)
     nb_w, nb_ids = topk_bounded(w, n_neighbors)
 
-    mp = state.kf_mp_idx[kf_id]
+    mp = _row(state.kf_mp_idx, k)
     mpc = mp.clamp(0, M - 1).long()
-    base_valid = state.kf_feat_valid[kf_id] & (mp >= 0)
+    base_valid = _row(state.kf_feat_valid, k) & (mp >= 0)
     cand_ids = torch.where(base_valid, mp, -1)
     cand = (state.mp_pos[mpc], state.mp_normal[mpc], state.mp_min_dist[mpc],
             state.mp_max_dist[mpc], state.mp_desc[mpc])
-    ok_nb = (nb_w > 0) & (nb_ids != kf_id) & state.kf_valid[nb_ids]
+    ok_nb = (nb_w > 0) & (nb_ids != k) & state.kf_valid[nb_ids]
     no_taken = torch.zeros(N, dtype=torch.bool, device=dev)
 
     matches = []

@@ -1,0 +1,3 @@
+"""Descriptor matching."""
+
+from . import matcher  # noqa: F401

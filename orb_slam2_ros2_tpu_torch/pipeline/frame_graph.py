@@ -1,6 +1,7 @@
-"""The per-frame tracking program as captured CUDA graphs, a generic
-captured step (``StepGraph``, the odometry step's), and the pinned host
-buffers the frame loop stages through.
+"""The per-frame tracking program and the keyframe programs as captured CUDA
+graphs, a generic captured step (``StepGraph``, the odometry step's and the
+essential graph's), and the pinned host buffers the frame loop stages
+through.
 
 ``FrameGraphs`` is the counterpart of the JAX package's jitted ``_frame`` and
 ``_frame_reloc`` programs (``orb_slam2_ros2_tpu/pipeline/system.py``): the
@@ -34,6 +35,12 @@ kernel wrappers count a launch where they launch (``fast.fast_nms_launches``,
 nothing and counts nothing, and a replay — launched by the CUDA graph, not by a
 wrapper — counts in ``replays`` only (``chip_smoke.py`` profiles replays to
 see the kernels run inside them).
+
+``KeyframeGraphs`` is the counterpart of JAX's jitted ``_map_front``,
+``_map_tail_variants`` and ``_cull_kfs``: the keyframe programs take their
+ids as int32 [1] tensors and write the map fields they change into the
+storage inside the graph (JAX donates the map), so a replay returns only the
+local map and the keyframe's row.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .loop_closing import HostCopy
+from ..mapstate.map_state import MapState, copy_into
+from ..solvers import local_ba
 
 
 def tree_leaves(x) -> list:
@@ -201,13 +209,104 @@ class FrameGraphs:
 
     def run(self, img_l, img_r, last, velocity, local, mapstate, ref_kf: int, *, proj_th: float):
         step = self._step(proj_th, tuple(t.data_ptr() for t in mapstate))
-        ref = torch.full((1,), int(ref_kf), dtype=torch.int32, device=img_l.device)
+        ref = id_tensor(ref_kf, img_l.device)
         captures, replays = step.captures, step.replays
         out = step(img_l, img_r, last, velocity, local, ref, fixed=(mapstate,))
         if step.captures > captures:
             self.capture_log.append((proj_th, tuple(img_l.shape), tuple(img_r.shape)))
         self.replays += step.replays - replays
         return out
+
+
+def id_tensor(v, device) -> torch.Tensor:
+    """An id (host int or tensor) as an int32 [1] tensor on ``device``; a
+    host int is filled in by a kernel, not copied from the host."""
+    if torch.is_tensor(v):
+        return v.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(v), dtype=torch.int32, device=device)
+
+
+class KeyframeGraphs:
+    """The keyframe programs, each one ``StepGraph``: the front program, each
+    ``(do_ba, do_cull)`` variant of the tail that is asked for, and the
+    keyframe cull of an aborted BA (``SLAM._flush_pending``).
+
+    ``front(mapstate, frame, Tcw, mp_ids, fid, kf_id)``, ``tail(mapstate,
+    kf_id, do_ba, do_cull)`` and ``cull(mapstate, kf_id)`` are the eager
+    programs (``SLAM.map_front_program``, ``map_tail_program``,
+    ``_cull_kfs``), which return a new map first.  Here the ids go in as
+    int32 [1] tensors and the map storage as ``fixed``; each captured
+    program writes the fields it changed into the storage, inside the graph
+    (JAX donates the map), and returns only its small outputs, so no replay
+    clones a whole map.  ``copied_bytes`` counts the bytes written into the
+    storage.  A storage of other shapes needs ``clear()`` first."""
+
+    def __init__(self, front: Callable, tail: Callable, cull: Callable, *, capture: bool = True):
+        self._front, self._tail, self._cull = front, tail, cull
+        self.capture = capture
+        self._steps: Dict[object, StepGraph] = {}
+        self._map_ptrs: Optional[tuple] = None
+        self._bytes: Dict[object, int] = {}   # bytes each program writes into the storage
+        self.copied_bytes = 0
+
+    @property
+    def captures(self) -> int:
+        return sum(s.captures for s in self._steps.values())
+
+    @property
+    def replays(self) -> int:
+        return sum(s.replays for s in self._steps.values())
+
+    def clear(self) -> None:
+        """Drop every graph: the map storage was re-allocated."""
+        self._steps.clear()
+        self._map_ptrs = None
+
+    def _run(self, key, program: Callable, mapstate: MapState, *inputs):
+        ptrs = tuple(t.data_ptr() for t in mapstate)
+        if self._map_ptrs is None:
+            self._map_ptrs = ptrs
+        elif ptrs != self._map_ptrs:
+            raise RuntimeError("the map storage moved under a captured keyframe graph")
+        step = self._steps.get(key)
+        if step is None:
+            nbytes = self._bytes
+
+            def donated(*args):
+                *ins, storage = args
+                new, *outs = program(storage, *ins)
+                nbytes[key] = copy_into(storage, new)
+                return tuple(outs)
+
+            step = self._steps[key] = StepGraph(donated, capture=self.capture)
+        out = step(*inputs, fixed=(mapstate,))
+        self.copied_bytes += self._bytes[key]
+        return out
+
+    def map_front(self, mapstate: MapState, frame, Tcw, mp_ids, fid, kf_id):
+        """Insert the keyframe and run the front half into the storage.
+        Returns (local, the keyframe's fused mp_ids, its Tcw)."""
+        dev = mapstate.kf_Tcw.device
+        return self._run("map_front", self._front, mapstate, frame, Tcw, mp_ids,
+                         id_tensor(fid, dev), id_tensor(kf_id, dev))
+
+    def map_tail(self, mapstate: MapState, kf_id, do_ba: bool, do_cull: bool):
+        """The ``(do_ba, do_cull)`` tail into the storage; returns the local
+        map.  ``local_ba.local_ba_runs`` counts one BA a run, as the eager
+        program does (a capture runs the program twice, a replay never)."""
+        tail = self._tail
+        runs = local_ba.local_ba_runs
+        (local,) = self._run(("map_tail", do_ba, do_cull),
+                             lambda m, k: tail(m, k, do_ba, do_cull),
+                             mapstate, id_tensor(kf_id, mapstate.kf_Tcw.device))
+        local_ba.local_ba_runs = runs + int(do_ba)
+        return local
+
+    def cull_kfs(self, mapstate: MapState, kf_id) -> None:
+        """The keyframe cull into the storage."""
+        cull = self._cull
+        self._run("cull_kfs", lambda m, k: (cull(m, k),), mapstate,
+                  id_tensor(kf_id, mapstate.kf_Tcw.device))
 
 
 class _Slot:
@@ -253,5 +352,7 @@ class PinnedRing:
     def to_host(self, t: torch.Tensor) -> HostCopy:
         """Start copying a device tensor to the next pinned slot; the slot
         is reused ``n_slots`` copies later."""
+        from .loop_closing import HostCopy   # loop_closing imports this module
+
         slot = self._slot(t.shape, t.dtype)
         return HostCopy(t, slot.buf, slot.event)

@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 
 from ..geometry.camera import CameraParams
-from ..mapstate.map_state import MapState, _set_drop_2d
+from ..mapstate.map_state import MapState, _set_drop_2d, kf_index
 from ..utils import count_into, mask_from_ids, set_drop, topk_bounded
 from .pcg_ba import PointBAProblem, _chi2_point
 from .schur_ba import solve_ba_points
@@ -28,7 +28,7 @@ local_ba_runs = 0
 
 def extract_window_points(
     state: MapState,
-    kf_id: int,
+    kf_id,
     *,
     max_free: int,
     max_fixed: int,
@@ -44,8 +44,9 @@ def extract_window_points(
     arangeK = torch.arange(K, dtype=torch.int32, device=dev)
 
     # free cameras: top covisible neighbours, the keyframe itself first
-    w = state.covis[kf_id] * state.kf_valid.to(torch.int32)
-    w = w.index_fill(0, torch.full((1,), kf_id, dtype=torch.long, device=dev), INT32_MAX)
+    k = kf_index(kf_id, dev)
+    w = state.covis.index_select(0, k)[0] * state.kf_valid.to(torch.int32)
+    w = w.index_fill(0, k, INT32_MAX)
     wv, free_ids = topk_bounded(w, max_free)
     free_ok = wv > 0
     free_ids = torch.where(free_ok, free_ids, -1)
@@ -100,7 +101,7 @@ def extract_window_points(
 
 def local_ba(
     state: MapState,
-    kf_id: int,
+    kf_id,
     cam: CameraParams,
     *,
     max_free: int = 16,

@@ -269,6 +269,15 @@ def _gn_step_pcg_sharded(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, c
     return _finish_step(prob, S, dx)
 
 
+def gn_step(prob: PoseGraphProblem, S: sim3.Sim3, *, damping: float = 1e-6, cg_iters: int = 150,
+            dense_max_k: int = DENSE_MAX_K) -> sim3.Sim3:
+    """One single-process GN step: dense Cholesky up to ``dense_max_k``
+    vertices, matrix-free PCG above."""
+    if prob.kf_valid.shape[0] <= dense_max_k:
+        return _gn_step_dense(prob, S, damping)
+    return _gn_step_pcg(prob, S, damping, cg_iters)
+
+
 def optimize_pose_graph(
     prob: PoseGraphProblem,
     *,
@@ -283,7 +292,6 @@ def optimize_pose_graph(
     Cholesky up to ``dense_max_k`` vertices, matrix-free PCG above; with a
     ``mesh`` (``parallel.mesh.Mesh`` over ``mesh_axis``) always the
     edge-sharded PCG, the edges padded and split once for all iterations."""
-    K = prob.kf_valid.shape[0]
     S = prob.S_cw
     if mesh is not None:
         if mesh.axis != mesh_axis:
@@ -294,8 +302,5 @@ def optimize_pose_graph(
             S = _gn_step_pcg_sharded(prob, S, damping, cg_iters, mesh, shards)
         return S
     for _ in range(iters):
-        if K <= dense_max_k:
-            S = _gn_step_dense(prob, S, damping)
-        else:
-            S = _gn_step_pcg(prob, S, damping, cg_iters)
+        S = gn_step(prob, S, damping=damping, cg_iters=cg_iters, dense_max_k=dense_max_k)
     return S

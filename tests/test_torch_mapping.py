@@ -103,7 +103,7 @@ def jax_modules(cfg):
 
 def torch_modules(cfg, cam):
     """The port's modules with the arguments its ``SLAM`` gives them;
-    ``kf`` is a host int."""
+    ``kf`` is a host int or an int32 [1] tensor."""
     from orb_slam2_ros2_tpu_torch.solvers.local_ba import local_ba
 
     c, o, t, mp, b = cfg.camera, cfg.orb, cfg.tracking, cfg.mapping, cfg.ba
@@ -365,12 +365,19 @@ STAGES = [("cull_mp", "insert"), ("triangulate", "cull_mp"), ("fuse", "triangula
           ("fuse_back", "fuse")]
 
 
+def kf_arg(kind, kf):
+    """A keyframe id as a host int or as an int32 [1] tensor (the captured
+    keyframe programs' form)."""
+    return int(kf) if kind == "int" else torch.tensor([int(kf)], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("ids", ["int", "tensor"])
 @pytest.mark.parametrize("stage,source", STAGES, ids=[s for s, _ in STAGES])
-def test_front_stage_matches_jax(world, stage, source):
+def test_front_stage_matches_jax(world, stage, source, ids):
     """One stage of the keyframe front half on the state the JAX stage
-    before it produced."""
+    before it produced, the keyframe id a host int or an int32 [1] tensor."""
     rec = world["rec"]
-    out = world["T"][stage](to_torch(rec[source]), rec["kf"])
+    out = world["T"][stage](to_torch(rec[source]), kf_arg(ids, rec["kf"]))
     assert_maps_agree(rec[stage], out)
 
 
@@ -442,14 +449,16 @@ def test_cull_keyframes_matches_jax(world):
 _jax_cull_keyframes = jax.jit(jmap.cull_keyframes, static_argnames=("n_candidates",))
 
 
+@pytest.mark.parametrize("ids", ["int", "tensor"])
 @pytest.mark.parametrize("redundancy", [0.3, 0.2])
-def test_cull_keyframes_that_remove_keyframes_match_jax(world, redundancy):
+def test_cull_keyframes_that_remove_keyframes_match_jax(world, redundancy, ids):
     """Lower redundancy gates cull keyframes, reparent their children and
-    freeze their poses relative to the parents, as the JAX package does."""
+    freeze their poses relative to the parents, as the JAX package does
+    (the keyframe id a host int or an int32 [1] tensor)."""
     rec = world["rec"]
     kw = dict(redundancy=redundancy, n_candidates=6)
     jout = _jax_cull_keyframes(rec["local_ba"], jnp.int32(rec["kf"]), **kw)
-    tout = tmap.cull_keyframes(to_torch(rec["local_ba"]), rec["kf"], **kw)
+    tout = tmap.cull_keyframes(to_torch(rec["local_ba"]), kf_arg(ids, rec["kf"]), **kw)
     assert int(tout.kf_valid.sum()) < int(np.asarray(rec["local_ba"].kf_valid).sum())
     assert_maps_agree(jout, tout)
     np.testing.assert_allclose(tout.kf_Tcp.numpy(), np.asarray(jout.kf_Tcp), atol=1e-5)

@@ -138,10 +138,16 @@ def test_auto_grow_doubles_capacities_as_jax_does(runs):
     assert [c for c in runs["jax"]["caps"]] == [(64, 16384)] * N_FRAMES
 
 
-def test_map_front_program_matches_jax(runs):
+def _ids(kind, *ids):
+    """Keyframe / frame ids as host ints or as int32 [1] tensors."""
+    return [int(i) if kind == "int" else torch.tensor([int(i)], dtype=torch.int32) for i in ids]
+
+
+@pytest.mark.parametrize("ids", ["int", "tensor"])
+def test_map_front_program_matches_jax(runs, ids):
     """The port's front program on the inputs of the JAX run's last
     keyframe: the map, the local-map snapshot and the adopted feature→point
-    table and pose."""
+    table and pose; the ids as host ints and as int32 [1] tensors."""
     rec = runs["rec"]
     state, frame, Tcw, mp_ids, fid = rec["pre"]
     jmap, kf = rec["fuse_back"], rec["kf"]
@@ -149,7 +155,7 @@ def test_map_front_program_matches_jax(runs):
     slam = TSLAM(slice_cfg(tcfg), enable_loop_closing=False, device="cpu")
     tmap, tlocal, tmp, tTcw = slam.map_front_program(
         convert.map_state_to_torch(state, "cpu"), convert.stereo_frame_to_torch(frame, "cpu"),
-        torch.from_numpy(np.array(Tcw)), torch.from_numpy(np.array(mp_ids)), int(fid), kf)
+        torch.from_numpy(np.array(Tcw)), torch.from_numpy(np.array(mp_ids)), *_ids(ids, fid, kf))
     assert_maps_agree(jmap, tmap)
     np.testing.assert_array_equal(tlocal.mp_ids.numpy(), np.asarray(jlocal.mp_ids))
     np.testing.assert_array_equal(tlocal.kf_ids.numpy(), np.asarray(jlocal.kf_ids))
@@ -157,21 +163,23 @@ def test_map_front_program_matches_jax(runs):
     np.testing.assert_allclose(tTcw.numpy(), np.asarray(jmap.kf_Tcw[kf]), atol=1e-5)
 
 
+@pytest.mark.parametrize("ids", ["int", "tensor"])
 @pytest.mark.parametrize("program", ["tail", "abort_cull"])
-def test_map_tail_program_matches_jax(runs, program):
+def test_map_tail_program_matches_jax(runs, program, ids):
     """The last deferred tail of the JAX run (local BA + keyframe cull +
-    snapshot), and the keyframe cull of a BA that a new keyframe aborted."""
+    snapshot), and the keyframe cull of a BA that a new keyframe aborted;
+    the id as a host int and as an int32 [1] tensor."""
     rec = runs["rec"]
     slam = TSLAM(slice_cfg(tcfg), enable_loop_closing=False, device="cpu")
     if program == "tail":
         kf, jmap = rec["kf"], rec["cull_kf"]
-        tmap, tlocal = slam.map_tail_program(convert.map_state_to_torch(rec["tail"], "cpu"), kf,
-                                             True, True)
+        tmap, tlocal = slam.map_tail_program(convert.map_state_to_torch(rec["tail"], "cpu"),
+                                             *_ids(ids, kf), True, True)
         jlocal = runs["jax"]["slam"]._snapshot(jmap, jnp.int32(kf))
         np.testing.assert_array_equal(tlocal.mp_ids.numpy(), np.asarray(jlocal.mp_ids))
     else:
         (state, kf), jmap = rec["abort_cull_in"], rec["abort_cull"]
-        tmap = slam._cull_kfs(convert.map_state_to_torch(state, "cpu"), kf)
+        tmap = slam._cull_kfs(convert.map_state_to_torch(state, "cpu"), *_ids(ids, kf))
     assert_maps_agree(jmap, tmap)
 
 
@@ -219,7 +227,8 @@ Cur = namedtuple("Cur", "frame Tcw mp_ids")
 
 def _mock_programs(slam, name, log):
     """Replace a system's keyframe programs by recorders of (program, kf,
-    flags), so the host logic runs alone."""
+    flags), so the host logic runs alone (the port's programs take the id as
+    a tensor, the keyframe graphs' static input, read when it is logged)."""
     if name == "jax":
         def front(m, frame, Tcw, mp_ids, fid, cam):
             log.append(("front", slam._n_kf))
@@ -232,11 +241,11 @@ def _mock_programs(slam, name, log):
         slam._cull_kfs = lambda m, kf: (log.append(("cull", int(kf))), m)[1]
     else:
         def front(m, frame, Tcw, mp_ids, fid, kf_id):
-            log.append(("front", kf_id))
+            log.append(("front", int(kf_id)))
             return m, None, mp_ids, Tcw
         slam.map_front_program = front
-        slam.map_tail_program = lambda m, kf, ba, cull: (log.append(("tail", kf, ba, cull)), (m, None))[1]
-        slam._cull_kfs = lambda m, kf: (log.append(("cull", kf)), m)[1]
+        slam.map_tail_program = lambda m, kf, ba, cull: (log.append(("tail", int(kf), ba, cull)), (m, None))[1]
+        slam._cull_kfs = lambda m, kf: (log.append(("cull", int(kf))), m)[1]
 
 
 @pytest.mark.parametrize("synchronous,ba_stride,cull_stride,force_ba_every",
