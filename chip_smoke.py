@@ -206,6 +206,27 @@ Phases (one line each; any failure raises and exits non-zero):
      beside the eager program's 2.9-3.7 s (``EAGER_ESSENTIAL_S``), each
      part's capture ms and the memory held; (c) phase 14c's wall time and
      fps curve beside the eager keyframe programs' (``EAGER_SCALE``).
+ 17. the background GBA and the relocalization as graphs (every phase above
+     already runs them so: the chunk and commit as ``global_ba.GBAGraphs``,
+     the query and cascade as ``frame_graph.RelocGraph``, captured at the
+     loop programs' warm-up or a map load): (a) phase 9's closure (the
+     chunks of its snapshot and its commit, kept by a spy during phase 9)
+     through a fresh ``GBAGraphs`` and through the same wrappers run
+     eagerly: every chunk, ungated and gated through one graph, and the
+     commit bit-equal (the commit also to ``commit_global_ba``), a chunk
+     under sync debug "error", one replay traced (1 graph launch, at most
+     ``GBA_HOST_LAUNCHES`` host launches) beside the unbucketed eager
+     chunk's trace; printed: each chunk's eager, replay and unbucketed
+     spans and the unbucketed chunk's largest difference, the first call
+     (eager run + capture), the memory the graphs hold, phase 9's captures
+     and replay spans; (b) the relocalizations of phases 7 and 14a (their
+     inputs kept by a spy): each ran as a replay of the warm-up's capture,
+     and each replay of a fresh ``RelocGraph`` is bit-equal to the eager
+     run and to the pose the phase returned; one eager run and one replay
+     under sync debug "error", one replay traced (1 graph launch) beside
+     the eager trace; printed: eager and replay spans, the relocalizing
+     frames' ms (median, max) beside the eager 208-309 ms, capture ms and
+     memory; (c) the GBA captures across phase 14c's closures and grows.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -334,6 +355,17 @@ PROFILE_FRAMES = 10
 # 11141c4 (optimize_essential a closure over its runs; phase 14c)
 EAGER_ESSENTIAL_S = (2.9, 3.7)
 EAGER_SCALE = dict(wall_s=107.6, fps=[7.94, 7.93, 8.30, 6.62, 7.80, 8.14, 4.61])
+# the GBA chunk and the relocalization as graphs (phase 17): the eager
+# figures they replace, by this script on an NVIDIA H100 80GB HBM3 at 700 W
+# (GBA chunk spans of phases 9 and 14 at commit 1a70968; a relocalizing
+# frame of 14a's kidnappings and the cascade's kernel time at commit 418eaa8)
+EAGER_GBA_CHUNK_MS = (115, 395)
+EAGER_RELOC_FRAME_MS = (208, 309)
+EAGER_CASCADE_KERNEL_MS = 36.7
+# host kernel launches a traced replay may add: the pads, the copies of its
+# inputs, the gate or id fills and the clones of its outputs
+GBA_HOST_LAUNCHES = 20
+RELOC_HOST_LAUNCHES = 20
 
 
 def gpu_line() -> str:
@@ -578,7 +610,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/16] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/17] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -592,7 +624,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/16", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/17", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -721,7 +753,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/16] {json.dumps(rec)}", flush=True)
+        print(f"[7/17] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -790,7 +822,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/16] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/17] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -815,7 +847,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/16", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/17", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1041,8 +1073,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/16")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/16")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/17")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/17")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1278,7 +1310,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/16] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/17] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1296,12 +1328,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/16] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/17] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/16] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/17] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1319,7 +1351,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/16] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/17] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1371,7 +1403,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/16] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/17] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1380,7 +1412,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/16", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/17", devices=MULTI_DEVICES)
     spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
              for k in ("optimize_essential", "gba_chunk")}
     b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
@@ -1388,7 +1420,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/16] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/17] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
@@ -1401,7 +1433,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/16", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/17", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
@@ -1413,7 +1445,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/16] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/17] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1436,7 +1468,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/16] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/17] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     return (loop_launches, split_launches), out
@@ -1585,7 +1617,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/16] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/17] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1707,12 +1739,13 @@ def run_scale(base: SLAMConfig):
         after_closures=_after_closures(records),
         kf_doublings=len(kf_doublings), mp_doublings=len(mp_doublings),
         captures=graphs.captures, capture_log=graphs.capture_log, replay_vs_eager=st["compared"],
+        gba_capture_log=slam._gba_graphs.capture_log,
         **_ms_stats(records, closures),
         keyframe_span_ms={k: dict(n=len(v), median=statistics.median(v), max=max(v))
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/16] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/17] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1730,18 +1763,20 @@ def run_scale(base: SLAMConfig):
 
 def run_long(base: SLAMConfig) -> tuple:
     """Phase 14: the adversarial world synchronous (a) and pipelined (b),
-    then the scale run (c).  Returns the three runs' launch counts and the
-    scale run's summary."""
+    then the scale run (c).  Returns the three runs' launch counts, the
+    scale run's summary (with its GBA graphs' calls and (a)'s kidnapping
+    frames' ms) and (a)'s relocalizations as ``_RelocCalls`` kept them."""
     from orb_slam2_ros2_tpu_torch.io.synthetic import AdversarialStereoDataset
 
     t0 = time.perf_counter()
     ds = AdversarialStereoDataset(base.camera, n_frames=ADV_FRAMES, frames_per_lap=ADV_LAP, device="cuda")
     frames = _Frames(ds, ADV_FRAMES)   # rendered on the card, set-up
     render_s = time.perf_counter() - t0
-    a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
+    with _RelocCalls("14a") as reloc14:
+        a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/16] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/17] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1749,13 +1784,16 @@ def run_long(base: SLAMConfig) -> tuple:
           f"{a['ate_final_m']:.4f} / {b['ate_final_m']:.4f} m on {a['path_len_m']:.2f} m, launches "
           f"{a_launches} / {b_launches}", flush=True)
     del frames
-    c_launches, c = run_scale(base)
-    print(f"[14/16] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    with _GBACalls() as gba14c:
+        c_launches, c = run_scale(base)
+    c["gba_calls"] = gba14c.summary()
+    c["kidnap_ms"] = a["kidnap_ms"]
+    print(f"[14/17] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
           f"{c['peak_mem_mib']:.1f} MiB, {c['wall_s']:.1f} s, launches {c_launches}", flush=True)
-    return [a_launches, b_launches, c_launches], c
+    return [a_launches, b_launches, c_launches], c, reloc14.calls
 
 
 def _k1_twin(canvas, table, threshold, nms=True, out=None):
@@ -1870,7 +1908,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/16] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/17] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -1963,7 +2001,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/16] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/17] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2089,7 +2127,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/16] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/17] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2134,7 +2172,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/16] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/17] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2167,7 +2205,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/16] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/17] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2182,7 +2220,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/16] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2312,7 +2350,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/16] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/17] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2428,7 +2466,7 @@ def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
         replay_span_ms=spans, replay_host_ms=hosts, captures=g.captures, replays=g.replays,
         traced={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms", "wall_ms",
                                      "api")})
-    print(f"[16/16] b. essential graph: {json.dumps(summary)}", flush=True)
+    print(f"[16/17] b. essential graph: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"16b: {bad}")
     return summary
@@ -2444,12 +2482,321 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/16] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/17] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/16] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
+
+
+class _GBACalls:
+    """While active, every ``GBAGraphs`` chunk and commit keeps its host ms,
+    a CUDA-event pair around it (read after the run) and whether it
+    captured; the chunks of the newest snapshot and the newest commit also
+    keep their inputs, cloned (the closure phase 17a runs again)."""
+
+    def __enter__(self):
+        from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+        from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
+        from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs
+
+        self.cls, self.calls, self.chunks, self.commit_in = GBAGraphs, [], [], None
+        self._source = self._prob = None
+        step, commit = self.orig = GBAGraphs.step, GBAGraphs.commit
+
+        def iterate(pending):
+            return pending._replace(Tcw=pending.Tcw.clone(), ptsT=pending.ptsT.clone(),
+                                    pt_in_ba=pending.pt_in_ba.clone())
+
+        def timed(kind, graphs, fn):
+            caps = graphs.captures
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = fn()
+            ev[1].record()
+            self.calls.append(dict(kind=kind, host_ms=(time.perf_counter() - t0) * 1000.0, events=ev,
+                                   captured=graphs.captures > caps))
+            return out
+
+        def spy_step(graphs, pending, cam, *, robust_after, capacity):
+            if pending.prob is not self._source:   # a new snapshot
+                self._source, self._prob, self.chunks = pending.prob, tree_map(torch.clone, pending.prob), []
+            self.chunks.append((iterate(pending)._replace(prob=self._prob), cam, robust_after, capacity))
+            return timed("chunk", graphs, lambda: step(graphs, pending, cam, robust_after=robust_after,
+                                                       capacity=capacity))
+
+        def spy_commit(graphs, storage, pending, *, propagate_depth=None):
+            self.commit_in = (MapState(*(t.clone() for t in storage)), iterate(pending), propagate_depth)
+            return timed("commit", graphs, lambda: commit(graphs, storage, pending, propagate_depth=propagate_depth))
+
+        GBAGraphs.step, GBAGraphs.commit = spy_step, spy_commit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step, self.cls.commit = self.orig
+
+    def summary(self) -> dict:
+        """Captures with their host ms, and replay spans, by kind (after a
+        synchronise)."""
+        torch.cuda.synchronize()
+        out = {}
+        for kind in ("chunk", "commit"):
+            cs = [c for c in self.calls if c["kind"] == kind]
+            rep = [c["events"][0].elapsed_time(c["events"][1]) for c in cs if not c["captured"]]
+            out[kind] = dict(calls=len(cs), captures=sum(c["captured"] for c in cs),
+                             capture_host_ms=[round(c["host_ms"], 1) for c in cs if c["captured"]],
+                             replay_span_ms_median=statistics.median(rep) if rep else None,
+                             replay_span_ms_max=max(rep) if rep else None)
+        return out
+
+
+def _timed_call(fn):
+    """(fn(), its CUDA-event span ms, its host ms), synchronised around."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1000.0
+
+
+def _held_mib(reserved0: int) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+
+
+def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
+    """17a: phase 9's closure (the chunks of its snapshot and its commit,
+    kept by ``_GBACalls``) through a fresh ``GBAGraphs`` and through the
+    same static-buffer wrappers run eagerly (``capture=False``): every chunk
+    (ungated and gated, one graph) and the commit bit-equal, a chunk under
+    sync debug "error", one chunk replay traced (1 graph launch, a handful
+    of host launches) beside the trace of the unbucketed eager chunk
+    (``step_global_ba``, the program before this graph); printed: chunk ms
+    each way, the first call's ms (eager run + capture), the memory the
+    graphs hold, and phase 9's own captures and replay spans."""
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+    from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs, commit_global_ba, step_global_ba
+
+    b = base.ba
+    kw = dict(n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo)
+    chunks, n_chunks = spied.chunks, sum(base.loop.global_ba_phase_iters)
+    if len(chunks) != n_chunks or spied.commit_in is None:
+        raise AssertionError(f"17a: phase 9 kept {len(chunks)} chunks of its closure's snapshot "
+                             f"(want {n_chunks}) and {'a' if spied.commit_in else 'no'} commit")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    eager, graph = GBAGraphs(capture=False, **kw), GBAGraphs(**kw)
+
+    def step(g, c):
+        pend, cam, robust_after, capacity = c
+        return g.step(pend, cam, robust_after=robust_after, capacity=capacity)
+
+    first, first_span, first_host = _timed_call(lambda: step(graph, chunks[0]))
+    held = _held_mib(reserved0)
+    bad, rows = [], []
+    for i, c in enumerate(chunks):
+        want, e_span, e_host = _timed_call(lambda: step(eager, c))
+        got, g_span, g_host = _timed_call(lambda: step(graph, c))
+        pend, cam, robust_after, _ = c
+        plain, p_span, _ = _timed_call(lambda: step_global_ba(pend, cam, robust_after=robust_after, **kw))
+        outs = [got] + ([first] if i == 0 else [])
+        if not all(torch.equal(o.Tcw, want.Tcw) and torch.equal(o.ptsT, want.ptsT) for o in outs):
+            bad.append(f"chunk {i}: the replay differs from the eager wrapper")
+        rows.append(dict(chunk=i, gated=pend.chunks_done >= robust_after, eager_span_ms=e_span,
+                         replay_span_ms=g_span, replay_host_ms=g_host, unbucketed_eager_span_ms=p_span,
+                         unbucketed_max_abs_diff=[float((plain.Tcw - want.Tcw).abs().max()),
+                                                  float((plain.ptsT - want.ptsT).abs().max())]))
+    with _sync_error():
+        step(graph, chunks[-1])
+    torch.cuda.synchronize()
+    prof = kernel_profile(lambda: step(graph, chunks[-1]))
+    prof.pop("result")
+    pend, cam, robust_after, _ = chunks[-1]
+    eprof = kernel_profile(lambda: step_global_ba(pend, cam, robust_after=robust_after, **kw))
+    eprof.pop("result")
+    if prof["graph_launches"] != 1 or prof["launches"] > GBA_HOST_LAUNCHES:
+        bad.append(f"traced chunk: {prof['graph_launches']} graph launches, {prof['launches']} host kernel "
+                   f"launches (at most {GBA_HOST_LAUNCHES}: pads, copies in, the gate, clones out)")
+    if graph.captures != 1 or graph.snapshot_loads != 1:
+        bad.append(f"{graph.captures} chunk captures, {graph.snapshot_loads} snapshot loads (want 1 and 1)")
+
+    state, pend, depth = spied.commit_in
+    into_eager, into_graph = (MapState(*(t.clone() for t in state)) for _ in range(2))
+    _, ce_span, _ = _timed_call(lambda: eager.commit(into_eager, pend, propagate_depth=depth))
+    _, c_first_span, c_first_host = _timed_call(lambda: graph.commit(into_graph, pend, propagate_depth=depth))
+    torch._foreach_copy_(list(into_graph), list(state))   # the pre-commit map again, at the same addresses
+    _, c_span, c_host = _timed_call(lambda: graph.commit(into_graph, pend, propagate_depth=depth))
+    plain_commit = commit_global_ba(state, pend, propagate_depth=depth)
+    fields = [n for n, a, g, p in zip(MapState._fields, into_eager, into_graph, plain_commit)
+              if not (torch.equal(a, g) and torch.equal(a, p))]
+    if fields:
+        bad.append(f"commit: fields {fields} differ (eager wrapper, replay, commit_global_ba)")
+    summary = dict(
+        bucket=list(graph._bucket.key[:4]), snapshot=[int(chunks[0][0].Tcw.shape[0]),
+                                                      int(chunks[0][0].ptsT.shape[1]),
+                                                      int(chunks[0][0].prob.cm_pt.shape[0])],
+        first_call_span_ms=first_span, first_call_host_ms=first_host, held_by_graphs_mib=held,
+        chunks=rows, commit=dict(eager_span_ms=ce_span, first_call_span_ms=c_first_span,
+                                 first_call_host_ms=c_first_host, replay_span_ms=c_span, replay_host_ms=c_host,
+                                 rounds=graph.capture_log[-1][1]),
+        traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
+                                            "wall_ms", "api")},
+        traced_unbucketed_eager={k: eprof[k] for k in ("launches", "device_kernels", "kernel_ms", "wall_ms")},
+        phase9=spied.summary(), eager_chunk_ms_before=EAGER_GBA_CHUNK_MS)
+    print(f"[17/17] a. GBA chunk and commit: {json.dumps(summary)}", flush=True)
+    if bad:
+        raise AssertionError(f"17a: {bad}")
+    return summary
+
+
+class _RelocCalls:
+    """While active, every ``SLAM._relocalize`` that has a database keeps its
+    inputs, cloned — the frame on the map's device, the frame id, the
+    keyframe database, the map storage — with the vocabulary, the
+    configuration and the phase's ``tag``, its host ms (to the fetch of its
+    result), whether the relocalization graph captured or replayed, and the
+    pose it returned."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+
+    def __enter__(self):
+        from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+        from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
+
+        self.calls = []
+        orig = self.orig = SLAM._relocalize
+
+        def spy(slam, frame, fid):
+            if slam.loop_closer is None:
+                return orig(slam, frame, fid)
+            g = slam._reloc_graph
+            caps, replays = g.captures, g.replays
+            rec = dict(tag=self.tag, cfg=slam.cfg, fid=fid, frame=tree_map(torch.clone, slam._to_map(frame)),
+                       db=tree_map(torch.clone, slam.loop_closer.db), map=MapState(*(t.clone() for t in slam.map)),
+                       vocab=slam.loop_closer.vocab)
+            t0 = time.perf_counter()
+            pose, info = orig(slam, frame, fid)
+            rec.update(host_ms=(time.perf_counter() - t0) * 1000.0, captured=g.captures > caps,
+                       replayed=g.replays > replays, pose=pose, relocalized=bool(info.get("relocalized")))
+            self.calls.append(rec)
+            return pose, info
+
+        SLAM._relocalize = spy
+        return self
+
+    def __exit__(self, *exc):
+        SLAM._relocalize = self.orig
+
+
+def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
+    """17b: the relocalizations of phases 7 and 14a (their inputs kept by
+    ``_RelocCalls``; ``frame_ms`` their frames' ms by phase) through a fresh
+    ``RelocGraph`` per configuration and through the same static-buffer
+    wrapper run eagerly: every replay bit-equal to the eager run and to the
+    pose the phase's own replay returned; one call eagerly and replayed
+    under sync debug "error"; one replay traced (1 graph launch) beside the
+    eager program's trace.  Every phase-7 and 14a relocalization must have
+    replayed the graph the warm-up captured.  Returns the summary."""
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+    from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import RelocGraph
+    from orb_slam2_ros2_tpu_torch.pipeline.system import RELOC_CANDIDATES
+    from orb_slam2_ros2_tpu_torch.solvers.epnp import uniform_draw
+
+    bad = [f"phase {c['tag']} fid {c['fid']}: captured, or did not replay"
+           for c in spied if c["captured"] or not c["replayed"]]
+    groups: dict = {}
+    for c in spied:
+        groups.setdefault((c["tag"], tuple(tuple(t.shape) for t in c["map"])), []).append(c)
+    out, eager_ms, replay_ms, replay_host = [], [], [], []
+    traced = sync_checked = False
+    for calls in groups.values():
+        slam = SLAM(calls[0]["cfg"], device="cuda")   # the program's constants
+        store = MapState(*(t.clone() for t in calls[0]["map"]))
+        eager = RelocGraph(slam.reloc_program, capture=False)
+        graph = RelocGraph(slam.reloc_program)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        first_host = held = None
+        for i, c in enumerate(calls):
+            torch._foreach_copy_(list(store), list(c["map"]))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(c["fid"])
+            u = uniform_draw((RELOC_CANDIDATES,), c["frame"].feats.capacity, gen)
+            args = (c["frame"], u, c["db"], store, c["vocab"])
+            if first_host is None:
+                _, _, first_host = _timed_call(lambda: graph(*args))   # eager run + capture
+                held = _held_mib(reserved0)
+            want, e_span, _ = _timed_call(lambda: eager(*args))
+            got, g_span, g_host = _timed_call(lambda: graph(*args))
+            eager_ms.append(e_span)
+            replay_ms.append(g_span)
+            replay_host.append(g_host)
+            if not _equal_trees(got, want):
+                bad.append(f"fid {c['fid']}: the replay differs from the eager run")
+            packed = got[0].cpu().numpy()
+            acc = packed[:, 0] > 0
+            live = (packed[int(np.argmax(acc)), 3:].reshape(4, 4) if acc.any() else None)
+            if (live is None) != (c["pose"] is None) or (live is not None and not np.array_equal(live, c["pose"])):
+                bad.append(f"fid {c['fid']}: the phase's relocalization returned another pose")
+            if not sync_checked and c["relocalized"]:
+                with _sync_error():
+                    eager(*args)
+                    graph(*args)
+                torch.cuda.synchronize()
+                sync_checked = True
+            if not traced and c["relocalized"]:
+                prof = kernel_profile(lambda: graph(*args))
+                eprof = kernel_profile(lambda: eager(*args))
+                if not _equal_trees(prof.pop("result"), eprof.pop("result")):
+                    bad.append("the traced replay differs from the traced eager run")
+                if prof["graph_launches"] != 1 or prof["launches"] > RELOC_HOST_LAUNCHES:
+                    bad.append(f"traced replay: {prof['graph_launches']} graph launches, {prof['launches']} "
+                               f"host kernel launches (at most {RELOC_HOST_LAUNCHES})")
+                traced = dict(replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels",
+                                                           "kernel_ms", "wall_ms", "api")},
+                              eager={k: eprof[k] for k in ("launches", "device_kernels", "kernel_ms", "wall_ms")})
+        out.append(dict(phase=calls[0]["tag"], calls=len(calls), relocalized=sum(c["relocalized"] for c in calls),
+                        kf_capacity=int(store.kf_capacity), first_call_host_ms=first_host,
+                        held_by_graph_mib=held, captures=graph.captures))
+        del slam, eager, graph, store
+    if not sync_checked or not traced:
+        bad.append("no relocalizing call to check under sync debug \"error\" and to trace")
+    live_ms = [c["host_ms"] for c in spied if c["relocalized"]]
+    summary = dict(
+        groups=out, eager_span_ms_median=statistics.median(eager_ms), replay_span_ms_median=statistics.median(replay_ms),
+        replay_span_ms_max=max(replay_ms), replay_host_ms_median=statistics.median(replay_host),
+        relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
+        frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
+        traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
+    print(f"[17/17] b. relocalization: {json.dumps(summary)}", flush=True)
+    if bad:
+        raise AssertionError(f"17b: {bad}")
+    return summary
+
+
+def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, reloc_frame_ms: dict,
+                        scale: dict) -> None:
+    """Phase 17: the GBA chunk and commit (a) and the relocalization program
+    (b) as CUDA graphs against their eager wrappers, and (c) the GBA graphs'
+    captures across the scale run's closures."""
+    t0 = time.perf_counter()
+    run_gba_graph(base, gba9)
+    run_reloc_graph(reloc_calls, reloc_frame_ms)
+    c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
+             grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
+    print(f"[17/17] c. scale run: {json.dumps(c)}", flush=True)
+    if c["gba"]["commit"]["calls"] < 1:
+        raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
+    print(f"[17/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _frame_ms(records, keyframe=None):
@@ -2464,12 +2811,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/16] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/17] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/16] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/17] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -2485,21 +2832,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/16] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/17] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/16] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/17] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/16] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/17] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/16] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/17] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -2507,8 +2854,9 @@ def main() -> int:
     map_poses = [p for _, p in map_slam.trajectory]
     map_summary.update(frame_ms_keyframe=_frame_ms(map_records, True), frame_ms_other=_frame_ms(map_records, False))
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
-    reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/16] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    with _RelocCalls("7") as reloc7:
+        reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
+    print(f"[7/17] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -2516,16 +2864,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/16] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/17] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/16] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/17] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
-    with _EssentialCalls() as spied:
+    with _EssentialCalls() as spied, _GBACalls() as gba9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/16] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/17] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -2545,7 +2893,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/16] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/17] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -2556,7 +2904,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/16] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/17] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -2565,23 +2913,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/16] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/17] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/16] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/17] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/16] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/17] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/16")
-    print(f"[11/16] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/17")
+    print(f"[11/17] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -2592,29 +2940,31 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/16] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/16] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/17] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/17] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/16] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/17] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/16] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/17] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/16] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/17] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    long_launches, scale = run_long(base)
+    long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
     graph_launches = run_graph_phase(map_cfg, base, spied, loop, scale)
+    run_gba_reloc_phase(base, gba9, reloc7.calls + reloc14,
+                        {"7": reloc["reloc_ms"], "14a": scale["kidnap_ms"]}, scale)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,

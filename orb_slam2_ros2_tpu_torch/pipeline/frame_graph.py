@@ -41,6 +41,10 @@ see the kernels run inside them).
 ids as int32 [1] tensors and write the map fields they change into the
 storage inside the graph (JAX donates the map), so a replay returns only the
 local map and the keyframe's row.
+
+``RelocGraph`` is the counterpart of JAX's ``_reloc_query_jit`` and
+``_reloc_fused`` as one graph: the BoW query and the candidate cascade of a
+LOST frame.
 """
 
 from __future__ import annotations
@@ -218,6 +222,16 @@ class FrameGraphs:
         return out
 
 
+def held_addresses(held: Optional[tuple], tensors, what: str, graph: str) -> tuple:
+    """The data pointers of ``tensors`` (``what``), which a captured
+    ``graph`` reads at fixed addresses: they must equal ``held`` unless
+    nothing is held yet."""
+    ptrs = tuple(t.data_ptr() for t in tensors)
+    if held is not None and ptrs != held:
+        raise RuntimeError(f"{what} moved under a captured {graph}")
+    return ptrs
+
+
 def id_tensor(v, device) -> torch.Tensor:
     """An id (host int or tensor) as an int32 [1] tensor on ``device``; a
     host int is filled in by a kernel, not copied from the host."""
@@ -263,11 +277,7 @@ class KeyframeGraphs:
         self._map_ptrs = None
 
     def _run(self, key, program: Callable, mapstate: MapState, *inputs):
-        ptrs = tuple(t.data_ptr() for t in mapstate)
-        if self._map_ptrs is None:
-            self._map_ptrs = ptrs
-        elif ptrs != self._map_ptrs:
-            raise RuntimeError("the map storage moved under a captured keyframe graph")
+        self._map_ptrs = held_addresses(self._map_ptrs, mapstate, "the map storage", "keyframe graph")
         step = self._steps.get(key)
         if step is None:
             nbytes = self._bytes
@@ -307,6 +317,40 @@ class KeyframeGraphs:
         cull = self._cull
         self._run("cull_kfs", lambda m, k: (cull(m, k),), mapstate,
                   id_tensor(kf_id, mapstate.kf_Tcw.device))
+
+
+class RelocGraph:
+    """The relocalization program — BoW query, candidates and the batched
+    cascade — as one ``StepGraph``.  ``program(frame, u, db, mapstate,
+    vocab)`` returns (packed [C, 19], cur_mp [C, N]); the frame, the RANSAC's
+    uniform draw ``u`` and the keyframe database are copied in (the database
+    is rebound at every keyframe registration), the map storage and the
+    vocabulary are read at their addresses (``fixed``), which must not move
+    until ``clear()``.  The program reads nothing back, so a warm-up call on
+    any frame captures what a LOST frame replays."""
+
+    def __init__(self, program: Callable, *, capture: bool = True):
+        self.program = program
+        self.capture = capture
+        self.clear()
+
+    def clear(self) -> None:
+        """Drop the graph: the map storage or the vocabulary was replaced."""
+        self._step = StepGraph(self.program, capture=self.capture)
+        self._ptrs: Optional[tuple] = None
+
+    @property
+    def captures(self) -> int:
+        return self._step.captures
+
+    @property
+    def replays(self) -> int:
+        return self._step.replays
+
+    def __call__(self, frame, u: torch.Tensor, db, mapstate: MapState, vocab):
+        self._ptrs = held_addresses(self._ptrs, tree_leaves((mapstate, vocab)),
+                                    "the map storage or the vocabulary", "relocalization graph")
+        return self._step(frame, u, db, fixed=(mapstate, vocab))
 
 
 class _Slot:

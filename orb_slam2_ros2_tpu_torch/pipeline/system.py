@@ -33,13 +33,16 @@ detection through the consistency chains, or run one chunk of the background
 global BA; a verified loop is corrected at once (group propagation, fuses,
 essential graph), the GBA snapshot taken, and its commit re-anchors the
 tracker.  The dispatch and the GBA chunks read nothing back; the resolve, the
-stage gates, the correction and the commit do.
+stage gates, the correction and the commit do.  Without a mesh the GBA chunk
+and commit run as ``global_ba.GBAGraphs`` (captured CUDA graphs on the card).
 
 Relocalization (a LOST frame, or the first frame on a loaded map) queries the
 keyframe database — BoW candidates → descriptor match → EPnP RANSAC →
 pose-only LM → two projection augmentation rounds, ``reloc_all_candidates``
-— and costs one fetch.  Without a database (localization mode without
-``load()`` of a map saved with its vocabulary) a LOST frame returns
+— and costs one fetch; query and cascade are one program
+(``frame_graph.RelocGraph``, a CUDA graph on the card).  Without a database
+(localization mode without ``load()`` of a map saved with its vocabulary) a
+LOST frame returns
 ``(None, {"reloc": "no_vocab"})`` as the JAX system does.  ``save`` /
 ``load`` handle the npz map format and the reference's protobuf and txt
 formats.
@@ -68,11 +71,11 @@ import numpy as np
 import torch
 
 from ..bow import vocabulary as bow_vocabulary
-from ..bow.keyframe_db import find_reloc_candidates, rebuild, sparse_bow
+from ..bow.keyframe_db import KeyFrameDB, find_reloc_candidates, rebuild, sparse_bow
 from ..config import SLAMConfig
 from ..errors import FeatureLessError, FileNotOpenError, ImageSizeError
 from ..features.extractor import make_rgbd_frontend, make_stereo_frontend
-from ..features.frame import StereoFrame
+from ..features.frame import FrameFeatures, StereoFrame
 from ..geometry import se3
 from ..geometry.camera import CameraParams, project, unproject
 from ..io.persistence import load_map, save_map
@@ -95,14 +98,18 @@ from ..mapstate.mapping import (
 )
 from ..matching import matcher
 from ..ops.hamming import hamming_matrix
-from ..solvers.epnp import ransac_pnp
-from ..solvers.global_ba import commit_global_ba, global_ba, start_global_ba, step_global_ba
+from ..solvers.epnp import N_HYP, ransac_pnp, uniform_draw
+from ..solvers.global_ba import GBAGraphs, commit_global_ba, global_ba, start_global_ba, step_global_ba
 from ..solvers.local_ba import local_ba
 from ..solvers.pose_opt import PoseObs, optimize_pose
 from ..utils import count_into, mask_from_ids, mask_from_ids_rows, set_drop, set_drop_rows
-from .frame_graph import FrameGraphs, KeyframeGraphs, PinnedRing, tree_map
+from .frame_graph import FrameGraphs, KeyframeGraphs, PinnedRing, RelocGraph, tree_map
 from .loop_closing import HostCopy, LoopCloser
 from .tracking import TrackState
+
+
+# relocalization candidates a LOST frame's cascade tries (findRelocKfs)
+RELOC_CANDIDATES = 5
 
 
 class SlamFrame(NamedTuple):
@@ -414,6 +421,7 @@ def reloc_all_candidates(
     generator: Optional[torch.Generator] = None,
     *,
     sets: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
     accept: int,
     bow_max_dist: int,
     bow_ratio: float,
@@ -439,7 +447,9 @@ def reloc_all_candidates(
     The C candidate slots run as one batch — every stage carries a leading
     [C] dimension, as the JAX version ``vmap``s them — so a LOST frame
     launches one cascade, not C.  The RANSAC's minimal sets come from
-    ``generator``, or from ``sets`` (integer [C, H, S]) when given.
+    ``sets`` (integer [C, H, S]) when given, else from the uniform draw
+    ``u`` (f32 [C, H, N], ``epnp.uniform_draw``: a captured program takes
+    it as an input) or from ``generator``.
 
     Returns (packed f32[C, 19] = [accepted, n_inliers, cand_id, Tcw.flat],
     cur_mp i32[C, N]): the host fetches only the packed block, and the
@@ -476,7 +486,7 @@ def reloc_all_candidates(
     n_matches = found.to(torch.int32).sum(dim=-1)
 
     obs = obs_of(mp, found)
-    Tcw0, _, n0 = ransac_pnp(cam, obs.pw, feats.uv, inv_s2, found, generator, sets=sets)
+    Tcw0, _, n0 = ransac_pnp(cam, obs.pw, feats.uv, inv_s2, found, generator, sets=sets, u=u)
     Tcw1, inlier1, n1 = optimize_pose(cam, Tcw0, obs, **pose_common)
     cur_mp1 = torch.where(found & inlier1, mp, -1)
 
@@ -599,9 +609,15 @@ class SLAM:
                               if on_card and self._split else None)
         # the keyframe programs, captured on a CUDA map device (eager
         # elsewhere: the same static buffers and writes into the storage)
+        on_map_card = self.map_device.type == "cuda"
         self._kf_graphs = KeyframeGraphs(
             lambda *a: this().map_front_program(*a), lambda *a: this().map_tail_program(*a),
-            lambda *a: this()._cull_kfs(*a), capture=self.map_device.type == "cuda")
+            lambda *a: this()._cull_kfs(*a), capture=on_map_card)
+        # the unsharded GBA chunk and commit, and the relocalization query
+        # and cascade, likewise (the mesh route of the GBA stays eager)
+        self._gba_graphs = GBAGraphs(n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
+                                     chi2_stereo=b.chi2_stereo, capture=on_map_card)
+        self._reloc_graph = RelocGraph(lambda *a: this().reloc_program(*a), capture=on_map_card)
         # the split's published view: (mp_pos, mp_valid) on the tracker
         # device, and the local map on the map device
         self._view: Optional[tuple] = None
@@ -670,8 +686,8 @@ class SLAM:
     @property
     def map_copy_bytes(self) -> int:
         """Bytes copied into the map storage: by map assignments and by the
-        keyframe programs' writes."""
-        return self._assigned_bytes + self._kf_graphs.copied_bytes
+        keyframe programs' and the GBA commit's writes."""
+        return self._assigned_bytes + self._kf_graphs.copied_bytes + self._gba_graphs.copied_bytes
 
     @map.setter
     def map(self, new: MapState) -> None:
@@ -680,16 +696,17 @@ class SLAM:
         changed fields are copied into the storage the graphs read
         (``map_copy_bytes`` counts them), so a keyframe needs no new capture.
         A map of other shapes (a capacity change, a loaded map) becomes the
-        storage, as a copy of its own, and the frame and keyframe graphs are
-        dropped (the split's tracker graphs too: the local map they take
-        changes shape)."""
+        storage, as a copy of its own, and the frame, keyframe, GBA and
+        relocalization graphs are dropped (the split's tracker graphs too:
+        the local map they take changes shape)."""
         cur = self._map
         if new is cur:
             return
         if any(a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
                for a, b in zip(cur, new)):
             self._map = MapState(*(t.clone() for t in new))
-            for graphs in (self._frame_graphs, self._track_graphs, self._kf_graphs):
+            for graphs in (self._frame_graphs, self._track_graphs, self._kf_graphs, self._gba_graphs,
+                           self._reloc_graph):
                 if graphs is not None:
                     graphs.clear()
             return
@@ -1303,22 +1320,21 @@ class SLAM:
         EPnP RANSAC → pose-only optimization → projection augmentation
         rounds th=10 then th=3 — accept only at ≥ 50 inliers.
 
-        Query and cascade are dispatched without a host read; the host
+        Query and cascade are one program without a host read
+        (``reloc_program``, replayed as a CUDA graph on the card); the host
         fetches the packed [C, 19] block once, takes the first accepted
         candidate in score order and rebuilds the tracking state around its
-        keyframe.  The RANSAC draws from a generator seeded with ``fid``."""
+        keyframe.  The RANSAC's uniform draw comes from a generator seeded
+        with ``fid``, drawn before the replay."""
         if self.loop_closer is None:
             return None, {"reloc": "no_vocab"}
-        vocab = self.loop_closer.vocab
         frame_q = self._to_map(frame)   # the query and the cascade run on the map's device
-        words = bow_vocabulary.transform(vocab, frame_q.feats.desc, frame_q.feats.valid)
-        qvec = sparse_bow(vocab, words, self.cfg.bow.max_words_per_query)
-        cand_ids, _ = find_reloc_candidates(self.loop_closer.db, self.map, qvec,
-                                            n_words=vocab.n_words)
         gen = torch.Generator(device=self.map_device)
         gen.manual_seed(fid)
-        packed_dev, mp_dev = reloc_all_candidates(
-            self.map, self.map_cam, frame_q, cand_ids, gen, **self._reloc_common)
+        with self._program("relocalize", self.frame_sync_debug_mode):
+            u = uniform_draw((RELOC_CANDIDATES,), frame_q.feats.capacity, gen)
+            packed_dev, mp_dev = self._reloc_graph(frame_q, u, self.loop_closer.db, self.map,
+                                                   self.loop_closer.vocab)
         packed = packed_dev.cpu().numpy()  # the ONE fetch of the LOST frame
         info = {"reloc_candidates": int((packed[:, 2] >= 0).sum())}
         acc = packed[:, 0] > 0
@@ -1340,6 +1356,36 @@ class SLAM:
         self._traj_rel.append((fid, cand, pose @ _rigid_inv(ref_pose)))
         info.update(relocalized=True, reloc_kf=cand, n_inliers=int(packed[i, 1]))
         return pose, info
+
+    def reloc_program(self, frame: StereoFrame, u: torch.Tensor, db: KeyFrameDB, mapstate: MapState,
+                      vocab: bow_vocabulary.Vocabulary):
+        """The relocalization program of a LOST frame: BoW words and query
+        vector, ``find_reloc_candidates``, ``reloc_all_candidates`` with the
+        RANSAC's uniform draw ``u`` [C, H, N] (JAX's ``_reloc_query_jit``
+        then ``_reloc_fused``).  Returns (packed f32[C, 19], cur_mp i32[C, N])."""
+        words = bow_vocabulary.transform(vocab, frame.feats.desc, frame.feats.valid)
+        qvec = sparse_bow(vocab, words, self.cfg.bow.max_words_per_query)
+        cand_ids, _ = find_reloc_candidates(db, mapstate, qvec, n_words=vocab.n_words,
+                                            n_candidates=RELOC_CANDIDATES)
+        return reloc_all_candidates(mapstate, self.map_cam, frame, cand_ids, u=u, **self._reloc_common)
+
+    def _warm_reloc(self) -> None:
+        """Run the relocalization program once and discard the result, on
+        keyframe 0's features against an empty database (every candidate
+        slot −1): on the card its graph is captured here, not on a LOST
+        frame."""
+        if self.loop_closer is None:
+            return
+        m = self.map
+        zeros = torch.zeros_like(m.kf_angle[0])
+        frame = StereoFrame(
+            feats=FrameFeatures(uv=m.kf_uv[0], uv_raw=m.kf_uv[0], octave=m.kf_octave[0], response=zeros,
+                                angle=m.kf_angle[0], desc=m.kf_desc[0], valid=m.kf_feat_valid[0]),
+            right_u=m.kf_right_u[0], depth=zeros)
+        db = KeyFrameDB.empty(*self.loop_closer.db.word_ids.shape, device=self.map_device)
+        u = torch.zeros((RELOC_CANDIDATES, N_HYP, zeros.shape[0]), device=self.map_device)
+        with self._program("reloc_warmup", None):
+            self._reloc_graph(frame, u, db, m, self.loop_closer.vocab)
 
     def _need_keyframe(self, stats: dict, fid: Optional[int] = None) -> bool:
         """Keyframe decision (reference needNewKeyFrame, Tracking.cc:721-804):
@@ -1408,8 +1454,8 @@ class SLAM:
         """Double the store capacities as the allocators approach them; a
         keyframe grow re-snapshots ``local`` (its K-sized mask), re-pads the
         place-recognition rows and, on the card, re-captures the essential
-        graph at the new capacity (the frame and keyframe graphs re-capture
-        at their next use)."""
+        graph and the relocalization program at the new capacity (the frame,
+        keyframe and GBA graphs re-capture at their next use)."""
         self.map = grow_map(self.map, kf_capacity=kf_capacity, mp_capacity=mp_capacity)
         if mp_capacity is not None and self._split:
             self._refresh_view()
@@ -1420,6 +1466,8 @@ class SLAM:
                 self.loop_closer.grow(kf_capacity)
                 if self.map_device.type == "cuda" and self.mesh is None:
                     self.loop_closer.warm_essential(self.map)
+        if self.map_device.type == "cuda":
+            self._warm_reloc()
 
     def _flush_pending(self, next_kf_arriving: bool) -> None:
         """Resolve a pending mapping tail.  With the next keyframe already
@@ -1516,20 +1564,24 @@ class SLAM:
 
     def _warm_loop_programs(self) -> None:
         """Run the loop programs, a GBA chunk (ungated and gated) and its
-        commit once on the live map and discard them, so the first closure
-        pays no one-off library load or allocation mid-run.  The map is not
-        written; keyframe 0 is registered in the keyframe database, as the
-        JAX warm-up leaves it."""
+        commit, and the relocalization program once on the live map and
+        discard them, so the first closure or LOST frame pays no one-off
+        library load, allocation or capture mid-run (the chunk's graph of
+        this map's bucket, the commit's of depth 4).  The map is not changed:
+        the warm-up commit's watermarks are 0, which select no keyframe and
+        no point, so it writes back the values it reads; keyframe 0 is
+        registered in the keyframe database, as the JAX warm-up leaves it."""
         self.loop_closer.warmup(self.map, self.map_cam, mesh=self.mesh)
-        b, lp = self.cfg.ba, self.cfg.loop
-        phase1 = lp.global_ba_phase_iters[0]
+        phase1 = self.cfg.loop.global_ba_phase_iters[0]
         pend = start_global_ba(self.map, self.cfg.orb.scale_factor)
         for done in (0, phase1):   # the ungated and the gated chunk
-            step_global_ba(pend._replace(chunks_done=done), self.map_cam, n_iters=1,
-                           pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
-                           chi2_stereo=b.chi2_stereo, robust_after=phase1, mesh=self.mesh,
-                           axis=self.cfg.dist.mesh_axis)
-        commit_global_ba(self.map, pend)
+            self._gba_chunk(pend._replace(chunks_done=done))
+        if self.mesh is None:
+            self._gba_graphs.commit(self.map, pend._replace(snap_next_kf=0, snap_next_mp=0),
+                                    propagate_depth=4)
+        else:
+            commit_global_ba(self.map, pend)
+        self._warm_reloc()
 
     def _add_kf_to_db(self, kf_id: int) -> None:
         """Register a keyframe in the place-recognition database
@@ -1635,16 +1687,23 @@ class SLAM:
         self._reanchor_tracker(ref_before)
         return True
 
+    def _gba_chunk(self, pending):
+        """One chunk of ``pending``: through the graphs without a mesh, the
+        sharded eager chunk with one."""
+        b = self.cfg.ba
+        phase1 = self.cfg.loop.global_ba_phase_iters[0]
+        if self.mesh is None:
+            return self._gba_graphs.step(pending, self.map_cam, robust_after=phase1,
+                                         capacity=(self.map.kf_capacity, self.map.mp_capacity))
+        return step_global_ba(pending, self.map_cam, n_iters=1, pcg_iters=b.pcg_iters,
+                              chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1,
+                              mesh=self.mesh, axis=self.cfg.dist.mesh_axis)
+
     def _step_pending_gba(self) -> None:
         """One background-GBA chunk; the commit after the last one."""
-        b, lp = self.cfg.ba, self.cfg.loop
-        phase1 = lp.global_ba_phase_iters[0]
         with self._keyframe_program("gba_chunk"):
-            self._pending_gba = step_global_ba(
-                self._pending_gba, self.map_cam, n_iters=1, pcg_iters=b.pcg_iters,
-                chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1,
-                mesh=self.mesh, axis=self.cfg.dist.mesh_axis)
-        if self._pending_gba.chunks_done >= sum(lp.global_ba_phase_iters):
+            self._pending_gba = self._gba_chunk(self._pending_gba)
+        if self._pending_gba.chunks_done >= sum(self.cfg.loop.global_ba_phase_iters):
             self._commit_pending_gba()
 
     def _commit_pending_gba(self) -> None:
@@ -1652,7 +1711,10 @@ class SLAM:
         and re-anchor the tracker on it."""
         ref_before = self.map.kf_Tcw[self.ref_kf].clone()
         with self._loop_stage("gba_commit"):
-            self.map = commit_global_ba(self.map, self._pending_gba)
+            if self.mesh is None:
+                self._gba_graphs.commit(self.map, self._pending_gba)
+            else:
+                self.map = commit_global_ba(self.map, self._pending_gba)
         self._pending_gba = None
         self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
         self._reanchor_tracker(ref_before)
@@ -1751,6 +1813,9 @@ class SLAM:
             self.loop_closer = LoopCloser(self.cfg, vocab)
             self.loop_closer.span = self._loop_stage
             self.loop_closer.db = rebuild(vocab, self.map, max_words=self.cfg.bow.max_words_per_query)
+            self._reloc_graph.clear()   # a new vocabulary
+            if self.map_device.type == "cuda":
+                self._warm_reloc()
         self.state = TrackState.NOT_INITING
 
     # ------------------------------------------------------------------

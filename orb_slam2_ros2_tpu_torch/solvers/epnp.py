@@ -11,15 +11,21 @@ cascade runs its candidates as one batch.
 
 Where torch and JAX differ: a singular barycentric or normal system returns
 inf/NaN from ``solve_ex`` (``torch.linalg.solve`` would raise) and is gated
-by ``isfinite`` as in the JAX version; the rank-deficient least squares of
-the β cases are minimum-norm solves through ``pinv`` with
-``jnp.linalg.lstsq``'s default cutoff (eps·max(m, n)), since the CUDA
-``lstsq`` driver is full-rank only.
+by ``isfinite`` as in the JAX version.  The decompositions — the control
+points' principal axes, the null space of M, and the rank-deficient least
+squares of the β cases (minimum-norm, with ``jnp.linalg.lstsq``'s default
+cutoff eps·max(m, n)) — go through ``linalg_small.jacobi_svd``: on the H100
+``torch.linalg.eigh``, ``svd`` and ``pinv`` synchronise with the host and
+refuse a CUDA-graph capture, and ``torch.linalg.lstsq`` on CUDA solves
+full-rank systems only.
 
-Minimal sets are drawn from a ``torch.Generator`` by Gumbel top-k over
-logits (0 for valid rows, −1e9 for the others, as the JAX version's), which
-never fails when fewer than ``min_set`` rows are valid; ``sets`` overrides
-the draw, so a caller can hand in the sets another implementation drew.
+Minimal sets are drawn by Gumbel top-k over logits (0 for valid rows, −1e9
+for the others, as the JAX version's), which never fails when fewer than
+``min_set`` rows are valid.  The uniform draw comes from a
+``torch.Generator``, or is handed in as ``u`` (``uniform_draw``): a captured
+program takes it as an input, since a generator's draw cannot be captured.
+``sets`` overrides the draw, so a caller can hand in the sets another
+implementation drew.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ import torch
 from ..geometry import se3
 from ..geometry.align import horn_align
 from ..geometry.camera import CameraParams
+from .linalg_small import jacobi_svd, lstsq_min_norm
 
 _PAIR_I = (0, 0, 0, 1, 1, 2)
 _PAIR_J = (1, 2, 3, 2, 3, 3)
 _LSTSQ_EPS = 1.1920929e-07  # f32 machine epsilon
+N_HYP = 64   # RANSAC hypotheses
 
 
 def _solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -45,18 +53,37 @@ def _solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 def _min_norm_lstsq(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Minimum-norm least squares ``argmin ‖A x − b‖`` for [..., m, n] × [..., m]."""
-    rcond = _LSTSQ_EPS * max(A.shape[-2:])
-    return torch.einsum("...nm,...m->...n", torch.linalg.pinv(A, rtol=rcond), b)
+    return lstsq_min_norm(A, b, _LSTSQ_EPS * max(A.shape[-2:]))
+
+
+def _pair_diffs(x: torch.Tensor) -> torch.Tensor:
+    """``x[..., i, :] − x[..., j, :]`` over the 6 control-point pairs, [..., 4, 3]
+    → [..., 6, 3], by slices (an index tensor built from a host list would
+    be a copy from the host)."""
+    return torch.stack([x[..., i, :] - x[..., j, :] for i, j in zip(_PAIR_I, _PAIR_J)], dim=-2)
+
+
+def uniform_draw(lead: tuple, n: int, generator: torch.Generator, n_hyp: int = N_HYP,
+                 device=None) -> torch.Tensor:
+    """The uniform numbers ``sample_minimal_sets`` turns into ``n_hyp``
+    minimal sets over ``n`` rows: f32[*lead, n_hyp, n] from ``generator``
+    (on ``device``, by default the generator's).  The draw depends on the
+    shape only."""
+    return torch.rand((*lead, n_hyp, n), generator=generator,
+                      device=generator.device if device is None else device)
 
 
 def sample_minimal_sets(valid: torch.Tensor, n_hyp: int, min_set: int,
-                        generator: torch.Generator) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None, *,
+                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``n_hyp`` index sets of ``min_set`` distinct rows each, i64[..., H, S],
     drawn without replacement with valid rows infinitely preferred: Gumbel
     top-k over logits 0 (valid) / −1e9 (invalid).  With fewer than
-    ``min_set`` valid rows the rest of a set are invalid rows."""
-    u = torch.rand((*valid.shape[:-1], n_hyp, valid.shape[-1]), generator=generator,
-                   device=valid.device)
+    ``min_set`` valid rows the rest of a set are invalid rows.  The uniform
+    draw ``u`` ([..., H, N], ``uniform_draw``) is taken from ``generator``
+    unless given."""
+    if u is None:
+        u = uniform_draw(valid.shape[:-1], valid.shape[-1], generator, n_hyp, device=valid.device)
     gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
     keys = gumbel + torch.where(valid, 0.0, -1e9)[..., None, :]
     return torch.topk(keys, min_set, dim=-1).indices
@@ -70,8 +97,9 @@ def epnp_solve(cam: CameraParams, pw: torch.Tensor, uv: torch.Tensor) -> Tuple[t
     # control points: centroid + PCA axes (PnPSolver.cc:139-176)
     c0 = pw.mean(dim=-2)
     centered = pw - c0[..., None, :]
-    cov = centered.transpose(-1, -2) @ centered / S
-    eigval, eigvec = torch.linalg.eigh(cov)
+    # the covariance's eigenpairs (ascending) from the SVD of the centred set
+    sv, V, _ = jacobi_svd(centered)
+    eigval, eigvec = (sv * sv / S).flip(-1), V.flip(-1)
     # axes scaled by sqrt eigenvalue (largest last).  An exactly planar set
     # has eigval[0] == 0: give that axis a small relative extent so the
     # barycentric system stays invertible — the β-case search covers the
@@ -93,11 +121,14 @@ def epnp_solve(cam: CameraParams, pw: torch.Tensor, uv: torch.Tensor) -> Tuple[t
     row_v = torch.cat([zeros, alpha * fv, alpha * (cy - uv[..., 1:2])], dim=-1)
     M = torch.cat([row_u, row_v], dim=-2)                                    # [..., 2S, 12]
     # SVD of M itself, not eigh(MᵀM): squaring doubles the condition number
-    # and in f32 the noise floor swamps the true null eigenvalue.  A
-    # non-finite M (singular barycentric system) is zeroed for the SVD and
-    # rejected by the isfinite gate below
+    # and in f32 the noise floor swamps the true null eigenvalue.  The
+    # rotations run in f64: the near-null singular values sit ~1e-7·‖M‖
+    # apart, inside f32 rounding, and a planar set's null space has four
+    # of them, whose order picks the β cases' vectors.  A non-finite M
+    # (singular barycentric system) is zeroed for the SVD and rejected by
+    # the isfinite gate below
     finite_M = torch.isfinite(M).all(dim=(-2, -1), keepdim=True)
-    vt = torch.linalg.svd(torch.where(finite_M, M, 0.0), full_matrices=True).Vh
+    vt = jacobi_svd(torch.where(finite_M, M, 0.0).double())[1].to(dt).transpose(-1, -2)
     # four smallest-singular-value directions, each as 4 control points
     # [4, 3] in the camera frame
     Vk = torch.stack(
@@ -106,10 +137,8 @@ def epnp_solve(cam: CameraParams, pw: torch.Tensor, uv: torch.Tensor) -> Tuple[t
     )                                                                        # [..., 4(null), 4(ctrl), 3]
 
     # control-point difference vectors of the 6 pairs
-    pi = torch.tensor(_PAIR_I, device=dev)
-    pj = torch.tensor(_PAIR_J, device=dev)
-    dv = Vk[..., pi, :] - Vk[..., pj, :]                                     # [..., 4, 6, 3]
-    dw_vec = ctrl_w[..., pi, :] - ctrl_w[..., pj, :]                         # [..., 6, 3]
+    dv = _pair_diffs(Vk)                                                     # [..., 4, 6, 3]
+    dw_vec = _pair_diffs(ctrl_w)                                             # [..., 6, 3]
     rho = torch.sum(dw_vec * dw_vec, dim=-1)                                 # [..., 6] squared dists
 
     # β initializations of the three null-space cases, each refined by
@@ -203,7 +232,8 @@ def ransac_pnp(
     generator: Optional[torch.Generator] = None,
     *,
     sets: Optional[torch.Tensor] = None,
-    n_hyp: int = 64,
+    u: Optional[torch.Tensor] = None,
+    n_hyp: int = N_HYP,
     min_set: int = 6,
     chi2_th: float = 5.991,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -211,16 +241,17 @@ def ransac_pnp(
     Ransac<T>::iterate).  Returns (Tcw [..., 4, 4], inliers [..., N],
     n_inliers [...]).  ``uv`` and ``inv_sigma2`` broadcast against the
     leading dimensions of ``pw`` and ``valid``.  The minimal sets come from
-    ``sets`` (integer [..., H, S]) when given, else from ``generator``."""
+    ``sets`` (integer [..., H, S]) when given, else from the uniform draw
+    ``u`` ([..., H, N]) or ``generator``."""
     lead = valid.shape[:-1]
     N = valid.shape[-1]
     pw = pw.expand(*lead, N, 3)
     uv = uv.expand(*lead, N, 2)
     inv_sigma2 = inv_sigma2.expand(*lead, N)
     if sets is None:
-        if generator is None:
-            raise ValueError("ransac_pnp needs a generator or explicit sets")
-        sets = sample_minimal_sets(valid, n_hyp, min_set, generator)
+        if generator is None and u is None:
+            raise ValueError("ransac_pnp needs a generator, a uniform draw or explicit sets")
+        sets = sample_minimal_sets(valid, n_hyp, min_set, generator, u=u)
     sets = sets.long()
     H, S = sets.shape[-2:]
     flat = sets.reshape(*lead, H * S)

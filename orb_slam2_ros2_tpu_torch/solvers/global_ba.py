@@ -20,6 +20,9 @@ the points and cameras over it (``pcg_ba.solve_global_ba_sharded``); the
 background solve pads and splits its snapshot once, on its first chunk,
 and keeps the shards in ``PendingGBA.shards`` (JAX caches the sharded chunk
 program instead).
+
+``GBAGraphs`` runs the unsharded chunk and the commit as captured CUDA
+graphs, the counterparts of JAX's jitted ``_step_jit`` and ``_commit_jit``.
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ import torch
 
 from ..geometry import se3
 from ..geometry.camera import CameraParams
-from ..mapstate.map_state import MapState
+from ..mapstate.map_state import MapState, copy_into
+from ..pipeline.frame_graph import StepGraph, held_addresses, id_tensor, tree_leaves
 from .pcg_ba import (
     GlobalBAProblem,
     PointBAProblem,
     _pad_global,
     _shard_global,
     global_ba_phase,
+    pad_global_to,
     point_to_global,
     solve_global_ba,
     solve_global_ba_sharded,
@@ -206,15 +211,10 @@ def step_global_ba(
                             chunks_done=pending.chunks_done + 1)
 
 
-def commit_global_ba(state: MapState, pending: PendingGBA, *,
-                     propagate_depth: Optional[int] = None) -> MapState:
-    """Commit a finished chunked GBA onto the live map, which may hold
-    keyframes and points created after the snapshot (LoopClosing.cc:109-166):
-    snapshot keyframes take their optimized poses; later keyframes follow
-    their spanning-tree parent's correction (``propagate_depth`` rounds,
-    by default the number of keyframes created since the snapshot, at least
-    4); optimized points take their positions, the others ride their
-    reference keyframe's correction.  Reads back ``next_kf``."""
+def _commit_inputs(state: MapState, pending: PendingGBA):
+    """The solve's iterate padded to the live map's capacities, which may
+    have grown since the snapshot: (Tcw_gba [K, 4, 4], pts_gba [M, 3],
+    in_ba [M])."""
     K, M = state.kf_capacity, state.mp_capacity
     Tcw_gba, pts_gba, in_ba = pending.Tcw, pending.ptsT.T, pending.pt_in_ba
     if Tcw_gba.shape[0] < K:
@@ -224,14 +224,36 @@ def commit_global_ba(state: MapState, pending: PendingGBA, *,
         pad = M - pts_gba.shape[0]
         pts_gba = torch.cat([pts_gba, pts_gba.new_zeros((pad, 3))])
         in_ba = torch.cat([in_ba, in_ba.new_zeros((pad,))])
+    return Tcw_gba, pts_gba, in_ba
+
+
+def _propagate_depth(state: MapState, pending: PendingGBA) -> int:
+    """The keyframes created since the snapshot, at least 4 (reads back
+    ``next_kf``, as JAX's ``commit_global_ba`` does)."""
+    return max(4, int(state.next_kf) - pending.snap_next_kf)
+
+
+def commit_global_ba(state: MapState, pending: PendingGBA, *,
+                     propagate_depth: Optional[int] = None) -> MapState:
+    """Commit a finished chunked GBA onto the live map, which may hold
+    keyframes and points created after the snapshot (LoopClosing.cc:109-166):
+    snapshot keyframes take their optimized poses; later keyframes follow
+    their spanning-tree parent's correction (``propagate_depth`` rounds,
+    by default the number of keyframes created since the snapshot, at least
+    4); optimized points take their positions, the others ride their
+    reference keyframe's correction.  Reads back ``next_kf``."""
     if propagate_depth is None:
-        propagate_depth = max(4, int(state.next_kf) - pending.snap_next_kf)
-    return _commit_impl(state, Tcw_gba, pts_gba, in_ba, pending.snap_next_kf,
+        propagate_depth = _propagate_depth(state, pending)
+    return _commit_impl(state, *_commit_inputs(state, pending), pending.snap_next_kf,
                         pending.snap_next_mp, propagate_depth)
 
 
-def _commit_impl(state: MapState, Tcw_gba, pts_gba, pt_in_ba, snap_next_kf: int,
-                 snap_next_mp: int, propagate_depth: int) -> MapState:
+def _commit_impl(state: MapState, Tcw_gba, pts_gba, pt_in_ba, snap_next_kf, snap_next_mp,
+                 propagate_depth, rounds: Optional[int] = None) -> MapState:
+    """The commit.  The watermarks and the depth are host ints, or int32 [1]
+    tensors (JAX traces them) with ``rounds`` ≥ the depth: the propagation
+    then runs ``rounds`` rounds, those at or past the depth masked — JAX's
+    ``fori_loop`` with a traced trip count, as a fixed program."""
     K, M = state.kf_capacity, state.mp_capacity
     dev = state.kf_Tcw.device
     old_kf = (torch.arange(K, device=dev) < snap_next_kf) & state.kf_valid
@@ -243,8 +265,10 @@ def _commit_impl(state: MapState, Tcw_gba, pts_gba, pt_in_ba, snap_next_kf: int,
     parent = state.kf_parent.clamp(0, K - 1).long()
     has_parent = state.kf_valid & (state.kf_parent >= 0)
     inv_parent_cur = se3.inverse(Tcw_cur[parent])
-    for _ in range(propagate_depth):
+    for r in range(propagate_depth if rounds is None else rounds):
         can = ~corrected & has_parent & corrected[parent]
+        if rounds is not None:
+            can = can & (propagate_depth > r)
         prop = Tcw_cur @ (inv_parent_cur @ Tcw_out[parent])
         Tcw_out = torch.where(can[:, None, None], prop, Tcw_out)
         corrected = corrected | can
@@ -261,3 +285,144 @@ def _commit_impl(state: MapState, Tcw_gba, pts_gba, pt_in_ba, snap_next_kf: int,
     p_new = torch.einsum("mij,mj->mi", Twc_new[:, :3, :3], p_cam) + Twc_new[:, :3, 3]
     mp_pos = torch.where(ref_ok[:, None], p_new, mp_pos)
     return state._replace(kf_Tcw=Tcw_out, mp_pos=mp_pos)
+
+
+# --------------------------------------------------------------------------
+# the chunk and the commit as CUDA graphs
+# --------------------------------------------------------------------------
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+class _Bucket(NamedTuple):
+    key: tuple                 # (K, M, N, O, device): the padded shapes
+    prob: GlobalBAProblem      # the static problem the graph reads
+    step: StepGraph
+    source: GlobalBAProblem    # the snapshot copied into ``prob`` last
+
+
+class GBAGraphs:
+    """The unsharded background GBA as CUDA graphs: the chunk
+    (``global_ba_phase`` of ``n_iters`` GN steps) and the commit
+    (``_commit_impl``), each a ``StepGraph`` (``capture=False`` runs the same
+    static-buffer wrappers eagerly: the CPU).
+
+    The chunk's graph is keyed on a bucket of the snapshot's shapes — its
+    watermarks rounded up to powers of two within the map's capacities, and
+    the camera-major feature capacity to a power of two ≥ 8 — so the
+    snapshots of later closures reuse it; the snapshot is padded to the
+    bucket (padded cameras fixed at the identity, padded points and edges
+    invalid) and copied into the bucket's static problem once, at its first
+    chunk.  A chunk then copies in only the iterate, the gate as a bool [1]
+    (``robust_gate``: one graph serves the ungated and the gated chunks)
+    and the camera.  Only the newest bucket's graph is kept.
+
+    The commit takes the watermarks and the propagation depth as int32 [1]
+    tensors and runs the depth rounded up to a power of two rounds, those
+    past the depth masked (a graph per rounding); it writes ``kf_Tcw`` and
+    ``mp_pos`` into the map storage inside the graph, as the keyframe graphs
+    do (``copied_bytes`` counts the bytes).  A storage of other shapes needs
+    ``clear()`` first."""
+
+    def __init__(self, *, n_iters: int = 1, pcg_iters: int = 40, lam: float = 0.1,
+                 chi2_mono: float = 5.991, chi2_stereo: float = 7.815, capture: bool = True):
+        self.solver = dict(n_iters=n_iters, pcg_iters=pcg_iters, lam=lam, chi2_mono=chi2_mono,
+                           chi2_stereo=chi2_stereo)
+        self.capture = capture
+        self._bucket: Optional[_Bucket] = None
+        self._commits: dict = {}     # rounds -> StepGraph
+        self._map_ptrs: Optional[tuple] = None
+        self._nbytes: dict = {}      # rounds -> bytes a commit writes into the storage
+        self.copied_bytes = 0
+        self.snapshot_loads = 0      # snapshots copied into a bucket's statics
+        self.capture_log: list = []  # ("chunk", (K, M, N, O)) / ("commit", rounds) of each graph
+
+    @property
+    def captures(self) -> int:
+        return len(self.capture_log)
+
+    @property
+    def replays(self) -> int:
+        steps = list(self._commits.values()) + ([self._bucket.step] if self._bucket else [])
+        return sum(s.replays for s in steps)
+
+    def clear(self) -> None:
+        """Drop every graph (the map storage was re-allocated)."""
+        self._bucket = None
+        self._commits.clear()
+        self._map_ptrs = None
+
+    @staticmethod
+    def bucket(pending: PendingGBA, capacity: tuple) -> tuple:
+        """(K, M, N) of the padded problem: the snapshot's watermarks rounded
+        up to powers of two within ``capacity`` (the map's keyframe and
+        point capacities), the feature capacity to a power of two ≥ 8."""
+        K0, M0 = pending.Tcw.shape[0], pending.ptsT.shape[1]
+        N0 = pending.prob.cm_pt.shape[0]
+        return (min(_pow2(K0), max(K0, capacity[0])), min(_pow2(M0), max(M0, capacity[1])),
+                max(8, _pow2(N0)))
+
+    def _chunk_program(self):
+        solver = self.solver
+
+        def chunk(Tcw, ptsT, gate, cam, prob):
+            return global_ba_phase(cam, prob, Tcw, ptsT, robust_gate=gate, **solver)
+
+        return chunk
+
+    def step(self, pending: PendingGBA, cam: CameraParams, *, robust_after: int,
+             capacity: tuple) -> PendingGBA:
+        """``step_global_ba`` without a mesh, through the bucket's graph;
+        ``capacity`` is the live map's (kf_capacity, mp_capacity)."""
+        K0, M0 = pending.Tcw.shape[0], pending.ptsT.shape[1]
+        K, M, N = self.bucket(pending, capacity)
+        key = (K, M, N, pending.prob.pm_cam.shape[0], pending.Tcw.device)
+        b = self._bucket
+        if b is None or b.key != key:
+            self._bucket = None   # the old bucket's graph goes first
+            prob = GlobalBAProblem(*(t.clone() for t in pad_global_to(pending.prob, K, M, N)))
+            b = self._bucket = _Bucket(key, prob, StepGraph(self._chunk_program(), capture=self.capture),
+                                       pending.prob)
+            self.snapshot_loads += 1
+        elif b.source is not pending.prob:
+            # a new snapshot of this bucket: into the statics, at their addresses
+            torch._foreach_copy_(tree_leaves(b.prob), tree_leaves(pad_global_to(pending.prob, K, M, N)))
+            b = self._bucket = b._replace(source=pending.prob)
+            self.snapshot_loads += 1
+        dev = pending.Tcw.device
+        Tcw = torch.cat([pending.Tcw, torch.eye(4, dtype=pending.Tcw.dtype, device=dev).expand(K - K0, 4, 4)])
+        ptsT = torch.cat([pending.ptsT, pending.ptsT.new_zeros((3, M - M0))], dim=1)
+        gate = torch.full((1,), pending.chunks_done >= robust_after, dtype=torch.bool, device=dev)
+        captures = b.step.captures
+        Tcw, ptsT = b.step(Tcw, ptsT, gate, cam, fixed=(b.prob,))
+        if b.step.captures > captures:
+            self.capture_log.append(("chunk", key[:4]))
+        return pending._replace(Tcw=Tcw[:K0], ptsT=ptsT[:, :M0], chunks_done=pending.chunks_done + 1)
+
+    def commit(self, storage: MapState, pending: PendingGBA, *,
+               propagate_depth: Optional[int] = None) -> None:
+        """``commit_global_ba`` into ``storage`` (the map the graphs read):
+        its ``kf_Tcw`` and ``mp_pos`` are written in place.  Reads back
+        ``next_kf`` unless ``propagate_depth`` is given."""
+        self._map_ptrs = held_addresses(self._map_ptrs, storage, "the map storage", "GBA commit graph")
+        if propagate_depth is None:
+            propagate_depth = _propagate_depth(storage, pending)
+        rounds = _pow2(propagate_depth)
+        step = self._commits.get(rounds)
+        if step is None:
+            nbytes = self._nbytes
+
+            def donated(Tcw_gba, pts_gba, in_ba, snap_kf, snap_mp, depth, state):
+                new = _commit_impl(state, Tcw_gba, pts_gba, in_ba, snap_kf, snap_mp, depth, rounds=rounds)
+                nbytes[rounds] = copy_into(state, new)
+                return ()
+
+            step = self._commits[rounds] = StepGraph(donated, capture=self.capture)
+        dev = storage.kf_Tcw.device
+        captures = step.captures
+        step(*_commit_inputs(storage, pending), id_tensor(pending.snap_next_kf, dev),
+             id_tensor(pending.snap_next_mp, dev), id_tensor(propagate_depth, dev), fixed=(storage,))
+        if step.captures > captures:
+            self.capture_log.append(("commit", rounds))
+        self.copied_bytes += self._nbytes[rounds]

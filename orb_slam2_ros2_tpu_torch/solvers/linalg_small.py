@@ -2,9 +2,11 @@
 ``orb_slam2_ros2_tpu/solvers/linalg_small.py``).
 
 Closed-form or unrolled versions of the 6×6 SPD solve, the 3×3 inverse and
-the rotation↔quaternion maps: plain elementwise ops that batch over leading
-dimensions and never synchronise with the host (``torch.linalg`` solvers may
-check for errors on the host).
+the rotation↔quaternion maps, and a fixed-sweep one-sided Jacobi SVD with the
+minimum-norm least squares built on it: plain elementwise ops that batch over
+leading dimensions and never synchronise with the host (``torch.linalg``
+solvers may check for errors on the host; on the H100 ``eigh``, ``svd`` and
+``pinv`` synchronise and refuse a CUDA-graph capture).
 """
 
 from __future__ import annotations
@@ -108,3 +110,62 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def _jacobi_round(X: torch.Tensor, m: int) -> torch.Tensor:
+    """One round of one-sided (Hestenes) Jacobi on ``X`` [..., m + n, n], the
+    matrix's rows over the accumulated rotation's: columns j and j + n/2 are
+    rotated so that their first ``m`` rows become orthogonal, then the
+    columns move one seat along the round-robin circle (column 0 stays), so
+    that n − 1 rounds pair every two columns once."""
+    h = X.shape[-1] // 2
+    P, Q = X[..., :h], X[..., h:]
+    norms = torch.sum(X[..., :m, :] * X[..., :m, :], dim=-2)
+    alpha, beta = norms[..., :h], norms[..., h:]
+    gamma = torch.sum(P[..., :m, :] * Q[..., :m, :], dim=-2)
+    zero = gamma == 0.0
+    zeta = (beta - alpha) / (2.0 * torch.where(zero, 1.0, gamma))
+    t = torch.where(zeta >= 0, 1.0, -1.0) / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta))
+    t = torch.where(zero, 0.0, t)
+    c = torch.rsqrt(1.0 + t * t)[..., None, :]
+    s = c * t[..., None, :]
+    P2, Q2 = c * P - s * Q, s * P + c * Q
+    if h == 1:
+        return torch.cat([P2, Q2], dim=-1)
+    return torch.cat([P2[..., :1], Q2[..., :1], P2[..., 1:h - 1], Q2[..., 1:], P2[..., h - 1:]], dim=-1)
+
+
+def jacobi_svd(A: torch.Tensor, sweeps: int = 6):
+    """SVD of [..., m, n] by one-sided Jacobi with a fixed number of sweeps
+    (n − 1 rounds each, n rounded up to even by a zero column): the columns
+    of A·V are made orthogonal by plane rotations accumulated in V, so the
+    small singular values keep their relative accuracy (no AᵀA is formed).
+    Returns (s [..., n] descending, V [..., n, n] whose columns are the
+    right singular vectors in that order, W = A·V [..., m, n], the columns
+    s_j·u_j).  Every singular vector's sign is arbitrary, as LAPACK's."""
+    m, n = A.shape[-2:]
+    ne = n + n % 2
+    eye = torch.eye(ne, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], ne, ne)
+    if ne > n:
+        A = torch.cat([A, torch.zeros_like(A[..., :1])], dim=-1)
+    X = torch.cat([A, eye], dim=-2)
+    for _ in range(sweeps * (ne - 1)):
+        X = _jacobi_round(X, m)
+    W, V = X[..., :m, :], X[..., m:, :]
+    s = torch.sqrt(torch.sum(W * W, dim=-2))
+    # the padding column is the one whose V row n holds its 1: it sorts last
+    key = s if ne == n else torch.where(V[..., n, :] > 0.5, -1.0, s)
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :n]
+    V = torch.gather(V[..., :n, :], -1, order[..., None, :].expand(*V.shape[:-2], n, n))
+    W = torch.gather(W, -1, order[..., None, :].expand(*W.shape[:-2], m, n))
+    return torch.gather(s, -1, order), V, W
+
+
+def lstsq_min_norm(A: torch.Tensor, b: torch.Tensor, rcond: float, sweeps: int = 6) -> torch.Tensor:
+    """Minimum-norm least squares ``argmin ‖A x − b‖`` for A [..., m, n] and
+    b [..., m]: ``pinv(A, rtol=rcond) @ b`` through ``jacobi_svd``, the
+    singular values at or below ``rcond``·s_max dropped."""
+    s, V, W = jacobi_svd(A, sweeps)
+    keep = s > rcond * s[..., :1]
+    coef = torch.einsum("...mn,...m->...n", W, b) / torch.where(keep, s * s, 1.0)
+    return torch.einsum("...ij,...j->...i", V, torch.where(keep, coef, 0.0))

@@ -26,7 +26,7 @@ that every shard takes the same step (JAX ``shard_map`` in_specs).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -338,17 +338,27 @@ def global_ba_phase(
     n_iters: int = 1,
     pcg_iters: int = 40,
     lam: float = 0.1,
-    robust_gate: bool = True,
+    robust_gate: Union[bool, torch.Tensor] = True,
     axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One resumable phase: ``n_iters`` damped-GN steps from (Tcw, ptsT) —
     the chunk of the background global BA.  ``robust_gate=False`` is the
     ungated first phase of ``solve_global_ba``; otherwise observations are
-    gated by the χ² of the entry iterate.  With a mesh ``axis``, ``prob``
-    and ``ptsT`` are the lists of its local shards (``_shard_global``) and
-    so is the returned ``ptsT``; ``Tcw`` is replicated."""
+    gated by the χ² of the entry iterate.  A bool [1] tensor
+    ``robust_gate`` (unsharded only) selects between the two on the
+    device, the gates always computed: one program, and one CUDA graph,
+    for every chunk of a solve (JAX compiles one per value).  With a mesh
+    ``axis``, ``prob`` and ``ptsT`` are the lists of its local shards
+    (``_shard_global``) and so is the returned ``ptsT``; ``Tcw`` is
+    replicated."""
     pm_th, cm_th = _shard_thresholds(prob, chi2_mono, chi2_stereo, axis)
-    if robust_gate:
+    if torch.is_tensor(robust_gate):
+        if axis is not None:
+            raise ValueError("a tensor robust_gate needs the unsharded problem")
+        pm_g, cm_g = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th)
+        pm_gate = torch.where(robust_gate, pm_g, prob.pm_valid)
+        cm_gate = torch.where(robust_gate, cm_g, prob.cm_valid)
+    elif robust_gate:
         pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis)
     elif axis is None:
         pm_gate, cm_gate = prob.pm_valid, prob.cm_valid
@@ -414,31 +424,48 @@ def _pad_global(prob: GlobalBAProblem, n_dev: int) -> GlobalBAProblem:
     axis (minor dim of pm_* / pt arrays) up to multiples of ``n_dev``;
     padded slots are fixed / invalid and contribute nothing."""
     K, M = prob.cam_Tcw.shape[0], prob.pt_pos.shape[0]
-    Kp, Mp = (-K) % n_dev, (-M) % n_dev
-    if Kp == 0 and Mp == 0:
+    return pad_global_to(prob, K + (-K) % n_dev, M + (-M) % n_dev)
+
+
+def pad_global_to(prob: GlobalBAProblem, K: int, M: int, N: Optional[int] = None) -> GlobalBAProblem:
+    """``prob`` padded to K cameras, M points and (when given) a camera-major
+    feature capacity of N: padded cameras are fixed with an identity pose,
+    padded points and edges invalid, so they contribute nothing.  Returns
+    ``prob`` itself when nothing is padded."""
+    Kp, Mp = K - prob.cam_Tcw.shape[0], M - prob.pt_pos.shape[0]
+    Np = 0 if N is None else N - prob.cm_pt.shape[0]
+    if min(Kp, Mp, Np) < 0:
+        raise ValueError(f"cannot pad a problem of {tuple(prob.cm_pt.shape)} edges, "
+                         f"{prob.pt_pos.shape[0]} points down to ({N}, {K}), {M} points")
+    if Kp == 0 and Mp == 0 and Np == 0:
         return prob
 
-    def pad_last(x, n, val=0):
+    def pad(x, n, val=0, dim=-1):
         if n == 0:
             return x
-        return torch.cat([x, torch.full((*x.shape[:-1], n), val, dtype=x.dtype, device=x.device)], dim=-1)
+        shape = list(x.shape)
+        shape[dim] = n
+        return torch.cat([x, torch.full(shape, val, dtype=x.dtype, device=x.device)], dim=dim)
+
+    def cm(x, val=0):   # camera-major planes [.., N, K]: the feature axis, then the cameras
+        return pad(pad(x, Np, val, dim=-2), Kp, val)
 
     eye = torch.eye(4, dtype=prob.cam_Tcw.dtype, device=prob.cam_Tcw.device).expand(Kp, 4, 4)
     return GlobalBAProblem(
         cam_Tcw=torch.cat([prob.cam_Tcw, eye]) if Kp else prob.cam_Tcw,
-        cam_free=pad_last(prob.cam_free, Kp, False),
-        pt_pos=torch.cat([prob.pt_pos, prob.pt_pos.new_zeros((Mp, 3))]) if Mp else prob.pt_pos,
-        pt_valid=pad_last(prob.pt_valid, Mp, False),
-        pm_cam=pad_last(prob.pm_cam, Mp),
-        pm_uv=pad_last(prob.pm_uv, Mp),
-        pm_right_u=pad_last(prob.pm_right_u, Mp, -1.0),
-        pm_inv_sigma2=pad_last(prob.pm_inv_sigma2, Mp, 1.0),
-        pm_valid=pad_last(prob.pm_valid, Mp, False),
-        cm_pt=pad_last(prob.cm_pt, Kp),
-        cm_uv=pad_last(prob.cm_uv, Kp),
-        cm_right_u=pad_last(prob.cm_right_u, Kp, -1.0),
-        cm_inv_sigma2=pad_last(prob.cm_inv_sigma2, Kp, 1.0),
-        cm_valid=pad_last(prob.cm_valid, Kp, False),
+        cam_free=pad(prob.cam_free, Kp, False),
+        pt_pos=pad(prob.pt_pos, Mp, 0.0, dim=0),
+        pt_valid=pad(prob.pt_valid, Mp, False),
+        pm_cam=pad(prob.pm_cam, Mp),
+        pm_uv=pad(prob.pm_uv, Mp),
+        pm_right_u=pad(prob.pm_right_u, Mp, -1.0),
+        pm_inv_sigma2=pad(prob.pm_inv_sigma2, Mp, 1.0),
+        pm_valid=pad(prob.pm_valid, Mp, False),
+        cm_pt=cm(prob.cm_pt),
+        cm_uv=cm(prob.cm_uv),
+        cm_right_u=cm(prob.cm_right_u, -1.0),
+        cm_inv_sigma2=cm(prob.cm_inv_sigma2, 1.0),
+        cm_valid=cm(prob.cm_valid, False),
     )
 
 

@@ -9,7 +9,9 @@ closure's correction and of the background GBA.  Then, with
 ``torch.profiler`` (CPU + CUDA activities) around one call each, it prints
 for the three parts of ``LoopCloser.correct`` (``correct_group``; the
 matched-point attach with the loop-group fuses; ``optimize_essential``), an
-ungated and a gated GBA chunk and the commit: the host wall time untraced
+ungated and a gated eager GBA chunk (``step_global_ba``, the program the
+system's ``GBAGraphs`` captures) and the eager commit, on the map the
+system's commit wrote (the same work): the host wall time untraced
 and traced, kernel launches and memory copies, summed kernel time, the
 device's idle share of the traced wall time and the top kernels
 (``profile_reloc.traced``).  Needs nvcc and a CUDA device; exits non-zero
@@ -29,7 +31,7 @@ from orb_slam2_ros2_tpu_torch import SLAMConfig
 from orb_slam2_ros2_tpu_torch.ops import _build
 from orb_slam2_ros2_tpu_torch.pipeline import loop_closing
 from orb_slam2_ros2_tpu_torch.pipeline import system as slam_system
-from orb_slam2_ros2_tpu_torch.solvers.global_ba import step_global_ba
+from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs, step_global_ba
 from orb_slam2_ros2_tpu_torch.solvers.pose_graph import optimize_pose_graph
 from profile_reloc import timed, traced
 
@@ -59,9 +61,9 @@ def main() -> int:
     # the real closure, not the warm-up's keyframe 0 against itself
     capture(loop_closing.LoopCloser, "correct", seen, keep=lambda a: a[3] != a[4])
     capture(slam_system, "start_global_ba", seen)
-    capture(slam_system, "commit_global_ba", seen)
+    capture(GBAGraphs, "commit", seen)
     chip_smoke.run_loop(cfg)
-    for name in ("correct", "start_global_ba", "commit_global_ba"):
+    for name in ("correct", "start_global_ba", "commit"):
         if name not in seen:
             raise AssertionError(f"the loop phase made no {name} call to profile")
 
@@ -84,7 +86,7 @@ def main() -> int:
     b, lp = cfg.ba, cfg.loop
     phase1 = lp.global_ba_phase_iters[0]
     (_, _, pending) = seen["start_global_ba"]
-    (live, done), _, _ = seen["commit_global_ba"]
+    (_, live, done), _, _ = seen["commit"]
     chunk = partial(step_global_ba, cam=cam, n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
                     chi2_stereo=b.chi2_stereo, robust_after=phase1)
     calls = [

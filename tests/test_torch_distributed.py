@@ -5,7 +5,8 @@
   ``tests/test_distributed_e2e.py`` (``slow`` in JAX) reached the cheap way:
   the revisit world of ``test_torch_loop_slice.py`` walked from detection to
   the committed GBA.  The essential graph and every background-GBA chunk
-  receive the SLAM's mesh, and the committed map matches the same walk
+  receive the SLAM's mesh (without it every chunk runs through
+  ``global_ba.GBAGraphs``), and the committed map matches the same walk
   without a mesh within the loop slice's tolerances (keyframes 1e-3 m /
   5e-3°, points 5e-3 m): the unsharded system solves the 16-keyframe
   essential graph by the dense Cholesky, the sharded one by the PCG.
@@ -29,6 +30,7 @@ from orb_slam2_ros2_tpu_torch import entry
 from orb_slam2_ros2_tpu_torch.io.synthetic import SyntheticStereoDataset
 from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
 from orb_slam2_ros2_tpu_torch.pipeline import system as tsys
+from orb_slam2_ros2_tpu_torch.solvers import global_ba as tgba
 from orb_slam2_ros2_tpu_torch.solvers import pose_graph as tpg
 
 MESH_SLOTS = ["cpu", "cpu"]
@@ -76,8 +78,17 @@ def test_gba_through_the_system_rides_the_mesh(monkeypatch):
     assert len(chunks) == sum(cfg.loop.global_ba_phase_iters) and all(m is sharded.mesh for m in chunks)
     assert len(graphs) == 20 and all(m is sharded.mesh for m in graphs)
     chunks.clear()
+    graph_chunks = []
+    graph_step = tgba.GBAGraphs.step
+
+    def spy_graph_step(graphs_, pending, cam, **kw):
+        graph_chunks.append(pending.chunks_done)
+        return graph_step(graphs_, pending, cam, **kw)
+
+    monkeypatch.setattr(tgba.GBAGraphs, "step", spy_graph_step)
     walk(plain)
-    assert chunks and all(m is None for m in chunks)
+    # without a mesh every chunk runs through the GBA graphs, none eagerly
+    assert not chunks and graph_chunks == list(range(sum(cfg.loop.global_ba_phase_iters)))
     assert_maps_agree(plain.map, sharded.map, point_m=POINT_M, pose_m=POSE_M, pose_deg=POSE_DEG)
     np.testing.assert_allclose(sharded.last.Tcw.numpy(), plain.last.Tcw.numpy(), atol=POSE_M)
 
