@@ -227,6 +227,24 @@ Phases (one line each; any failure raises and exits non-zero):
      the eager trace; printed: eager and replay spans, the relocalizing
      frames' ms (median, max) beside the eager 208-309 ms, capture ms and
      memory; (c) the GBA captures across phase 14c's closures and grows.
+ 18. the loop closer's remaining programs as graphs (every phase above
+     already runs them so: detection, the frame query, the Sim3 stages A,
+     B and C, the correction's front and each loop-group fuse as
+     ``loop_closing.LoopGraphs``, captured at the loop programs' warm-up
+     and after a grow, under sync debug "error" from call 2 of phases 9
+     and 14): (a) the newest call of each program in phase 9 (its inputs
+     kept by ``_LoopCalls``) and the closure's front with its fuses in
+     order, through a fresh ``LoopGraphs`` and through the same wrappers
+     run eagerly: every call bit-equal (outputs, the map and the
+     database), one replay of each under sync debug "error", one traced
+     (1 graph launch, at most ``LOOP_HOST_LAUNCHES`` host launches) beside
+     the eager trace; printed: eager and replay spans, each program's first
+     call (eager run + capture), the memory the graphs hold, phase 9's
+     captures and replay spans; (b) the closure frame's ``correct`` in its
+     parts (``correct_front``, the covisibility read, the fuses,
+     ``optimize_essential``) and the spike ratios of phases 9 and 14c
+     beside the eager stages' (``EAGER_LOOP``); (c) the loop-graph
+     captures over phase 14c's grows and 14c's peak device memory.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -240,6 +258,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -366,6 +385,19 @@ EAGER_CASCADE_KERNEL_MS = 36.7
 # inputs, the gate or id fills and the clones of its outputs
 GBA_HOST_LAUNCHES = 20
 RELOC_HOST_LAUNCHES = 20
+LOOP_HOST_LAUNCHES = 30
+LOOP_PROGRAMS = ("detect", "frame_detect", "sim3_a", "sim3_b", "sim3_c", "correct_front", "fuse_one")
+# the loop closer's programs as graphs (phase 18): the eager stages they
+# replace, by this script's run_loop and run_scale on an NVIDIA H100 80GB
+# HBM3 at 700 W at commit 55dd11c (spans in ms; 14c's medians of 4 closures)
+EAGER_LOOP = {
+    "9": dict(loop_detect_median=1.286, sim3_a=[9.65, 9.739, 8.063, 1.114, 1.127], sim3_b=[56.705, 48.769],
+              sim3_c=[7.312], correct_group=3.552, fuse=231.051, optimize_essential=701.863, correct=936.838,
+              spike_ratio=26.02),
+    "14c": dict(loop_detect_median=1.251, sim3_a_median=1.124, sim3_b_median=49.428, sim3_c_median=4.919,
+                correct_group=2.581, fuse=201.115, optimize_essential=600.937, correct=795.842,
+                spike_ratio=80.11, peak_mem_mib=3275.5),
+}
 
 
 def gpu_line() -> str:
@@ -610,7 +642,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/17] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/18] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -624,7 +656,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/17", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/18", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -753,7 +785,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/17] {json.dumps(rec)}", flush=True)
+        print(f"[7/18] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -822,7 +854,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/17] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/18] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -847,7 +879,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/17", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/18", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1073,8 +1105,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/17")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/17")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/18")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/18")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1310,7 +1342,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/17] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/18] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1328,12 +1360,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/17] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/18] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/17] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/18] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1351,7 +1383,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/17] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/18] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1403,7 +1435,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/17] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/18] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1412,7 +1444,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/17", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/18", devices=MULTI_DEVICES)
     spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
              for k in ("optimize_essential", "gba_chunk")}
     b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
@@ -1420,7 +1452,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/17] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/18] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
@@ -1433,7 +1465,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/17", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/18", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
@@ -1445,7 +1477,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/17] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/18] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1468,7 +1500,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/17] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/18] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     return (loop_launches, split_launches), out
@@ -1617,7 +1649,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/17] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/18] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1745,7 +1777,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/17] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/18] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1776,7 +1808,7 @@ def run_long(base: SLAMConfig) -> tuple:
         a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/17] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/18] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1784,11 +1816,12 @@ def run_long(base: SLAMConfig) -> tuple:
           f"{a['ate_final_m']:.4f} / {b['ate_final_m']:.4f} m on {a['path_len_m']:.2f} m, launches "
           f"{a_launches} / {b_launches}", flush=True)
     del frames
-    with _GBACalls() as gba14c:
+    with _GBACalls() as gba14c, _LoopCalls(keep=False) as loop14c:
         c_launches, c = run_scale(base)
     c["gba_calls"] = gba14c.summary()
+    c["loop_calls"] = loop14c.summary()
     c["kidnap_ms"] = a["kidnap_ms"]
-    print(f"[14/17] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/18] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
@@ -1908,7 +1941,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/17] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/18] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -2001,7 +2034,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/17] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/18] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2127,7 +2160,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/17] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/18] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2172,7 +2205,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/17] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/18] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2205,7 +2238,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/17] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/18] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2220,7 +2253,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2350,7 +2383,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/17] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/18] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2466,7 +2499,7 @@ def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
         replay_span_ms=spans, replay_host_ms=hosts, captures=g.captures, replays=g.replays,
         traced={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms", "wall_ms",
                                      "api")})
-    print(f"[16/17] b. essential graph: {json.dumps(summary)}", flush=True)
+    print(f"[16/18] b. essential graph: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"16b: {bad}")
     return summary
@@ -2482,11 +2515,11 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/17] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/18] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
 
 
@@ -2650,7 +2683,7 @@ def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
                                             "wall_ms", "api")},
         traced_unbucketed_eager={k: eprof[k] for k in ("launches", "device_kernels", "kernel_ms", "wall_ms")},
         phase9=spied.summary(), eager_chunk_ms_before=EAGER_GBA_CHUNK_MS)
-    print(f"[17/17] a. GBA chunk and commit: {json.dumps(summary)}", flush=True)
+    print(f"[17/18] a. GBA chunk and commit: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17a: {bad}")
     return summary
@@ -2777,7 +2810,7 @@ def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
         relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
         frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
         traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
-    print(f"[17/17] b. relocalization: {json.dumps(summary)}", flush=True)
+    print(f"[17/18] b. relocalization: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17b: {bad}")
     return summary
@@ -2793,10 +2826,196 @@ def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, re
     run_reloc_graph(reloc_calls, reloc_frame_ms)
     c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
              grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
-    print(f"[17/17] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[17/18] c. scale run: {json.dumps(c)}", flush=True)
     if c["gba"]["commit"]["calls"] < 1:
         raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
-    print(f"[17/17] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[17/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+class _LoopCalls:
+    """While active, every ``LoopGraphs`` program call keeps its name, a
+    CUDA-event pair around it (read after the run) and whether it captured.
+    With ``keep`` the newest call of each program also keeps its inputs,
+    cloned — the map (and database) it was given and its inputs — and the
+    ``fuse_one`` calls after the newest ``correct_front`` their inputs (the
+    map they write is the front's output; phase 18a replays the chain)."""
+
+    def __init__(self, keep: bool = True):
+        self.keep = keep
+
+    def __enter__(self):
+        from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
+        from orb_slam2_ros2_tpu_torch.pipeline.loop_closing import LoopGraphs
+
+        self.cls, self.calls, self.newest, self.fuses, self.vocab = LoopGraphs, [], {}, [], None
+        run = self.orig = LoopGraphs._run
+
+        def spy(graphs, name, fixed, *inputs):
+            if self.keep:
+                kept = tree_map(torch.clone, inputs)
+                if name == "fuse_one":
+                    self.fuses.append(kept)
+                else:
+                    self.newest[name] = (tree_map(torch.clone, fixed), kept)
+                if name == "correct_front":
+                    self.fuses = []
+                self.vocab = graphs.vocab
+            caps = graphs.captures
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = run(graphs, name, fixed, *inputs)
+            ev[1].record()
+            self.calls.append(dict(name=name, events=ev, host_ms=(time.perf_counter() - t0) * 1000.0,
+                                   captured=graphs.captures > caps))
+            return out
+
+        LoopGraphs._run = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run = self.orig
+
+    def summary(self) -> dict:
+        """By program: calls, captures with their host ms, replay spans
+        (after a synchronise)."""
+        torch.cuda.synchronize()
+        out = {}
+        for name in dict.fromkeys(c["name"] for c in self.calls):
+            cs = [c for c in self.calls if c["name"] == name]
+            rep = [c["events"][0].elapsed_time(c["events"][1]) for c in cs if not c["captured"]]
+            out[name] = dict(calls=len(cs), captures=sum(c["captured"] for c in cs),
+                             capture_host_ms=[round(c["host_ms"], 1) for c in cs if c["captured"]],
+                             replay_span_ms_median=statistics.median(rep) if rep else None,
+                             replay_span_ms_max=max(rep) if rep else None)
+        return out
+
+
+def run_loop_graphs(base: SLAMConfig, spied: _LoopCalls) -> dict:
+    """18a: the newest call of each loop program in phase 9 and the
+    closure's front with its fuses in order (kept by ``_LoopCalls``)
+    through a fresh ``LoopGraphs`` and through the same static-buffer
+    wrappers run eagerly (``capture=False``), each on its own copy of the
+    map and database reset before every call: outputs, map and database
+    bit-equal, a replay under sync debug "error", one replay traced (1
+    graph launch, at most ``LOOP_HOST_LAUNCHES`` host launches) beside the
+    eager trace; printed: eager and replay spans, the first call (eager run
+    + capture), the memory the graphs hold."""
+    from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_leaves, tree_map
+    from orb_slam2_ros2_tpu_torch.pipeline.loop_closing import LoopGraphs
+
+    want_names = ("detect", "sim3_a", "sim3_b", "sim3_c", "correct_front")
+    bad = [f"phase 9 made no {n} call" for n in want_names if n not in spied.newest]
+    if not spied.fuses:
+        bad.append("phase 9's closure made no fuse_one call")
+    if bad:
+        raise AssertionError(f"18a: {bad}")
+    eager, graph = LoopGraphs(base, spied.vocab, capture=False), LoopGraphs(base, spied.vocab)
+    rows, first_ms = {}, {}
+
+    def work(fixed):
+        return tree_map(torch.clone, fixed)
+
+    def reset(dst, fixed):
+        torch._foreach_copy_(tree_leaves(dst), tree_leaves(fixed))
+
+    def same(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def check(name, fixed, inputs, chain=()):
+        """``name`` on ``inputs`` (then the fuses of ``chain``) eagerly and
+        through the graph, each from ``fixed``."""
+        w_e, w_g = work(fixed), work(fixed)
+
+        def go(g, w):
+            out = g._run(name, w, *inputs)
+            return [out] + [g._run("fuse_one", w[:1], *f) for f in chain]
+
+        want, e_span, e_host = _timed_call(lambda: go(eager, w_e))
+        got, f_span, f_host = _timed_call(lambda: go(graph, w_g))   # eager run + capture (the fuses: 1)
+        first_ms[name] = f_host
+        if not (same(got, want) and same(w_g, w_e)):
+            bad.append(f"{name}: the first call differs from the eager wrapper")
+        spans, hosts = [], []
+        for _ in range(2):
+            reset(w_g, fixed)
+            got, g_span, g_host = _timed_call(lambda: go(graph, w_g))
+            spans.append(g_span)
+            hosts.append(g_host)
+            if not (same(got, want) and same(w_g, w_e)):
+                bad.append(f"{name}: a replay differs from the eager wrapper")
+        reset(w_g, fixed)
+        with _sync_error():
+            go(graph, w_g)
+        torch.cuda.synchronize()
+        reset(w_g, fixed)
+        prof = kernel_profile(lambda: graph._run(name, w_g, *inputs))
+        prof.pop("result")
+        reset(w_e, fixed)
+        eprof = kernel_profile(lambda: eager._run(name, w_e, *inputs))
+        eprof.pop("result")
+        if prof["graph_launches"] != 1 or prof["launches"] > LOOP_HOST_LAUNCHES:
+            bad.append(f"{name}: traced replay {prof['graph_launches']} graph launches, {prof['launches']} host "
+                       f"kernel launches (at most {LOOP_HOST_LAUNCHES})")
+        rows[name] = dict(eager_span_ms=e_span, eager_host_ms=e_host, replay_span_ms=spans, replay_host_ms=hosts,
+                          first_call_host_ms=f_host, calls=1 + len(chain),
+                          traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels",
+                                                               "kernel_ms", "wall_ms")},
+                          traced_eager={k: eprof[k] for k in ("launches", "device_kernels", "kernel_ms",
+                                                              "wall_ms")})
+
+    for name in ("detect", "frame_detect", "sim3_a", "sim3_b", "sim3_c"):
+        if name in spied.newest:
+            check(name, *spied.newest[name])
+    fixed, inputs = spied.newest["correct_front"]
+    check("correct_front", fixed, inputs)
+    # the fuses in order on the front's output, one graph replayed n times
+    front = work(fixed)
+    eager._run("correct_front", front, *inputs)
+    check("fuse_one", front, spied.fuses[0], chain=spied.fuses[1:])
+    del front
+    captures = graph.capture_log
+    with_graphs = _held_mib(0)
+    del graph   # what its pools and statics held
+    gc.collect()
+    held = with_graphs - _held_mib(0)
+    kf_ids = [int(f[0]) for f in spied.fuses]
+    summary = dict(programs=rows, fuse_ids=kf_ids, held_by_graphs_mib=held, captures=captures,
+                   phase9=spied.summary())
+    print(f"[18/18] a. loop graphs: {json.dumps(summary)}", flush=True)
+    if len(captures) != len(rows):
+        bad.append(f"captures {captures}: one a program")
+    if bad:
+        raise AssertionError(f"18a: {bad}")
+    return summary
+
+
+def run_loop_phase(base: SLAMConfig, loop9: _LoopCalls, loop: dict, scale: dict) -> None:
+    """Phase 18: the loop programs as CUDA graphs against their eager
+    wrappers (a), the closure frame's ``correct`` in its parts and the
+    spike ratios (b), the loop-graph captures over phase 14c's grows and
+    its peak memory (c)."""
+    t0 = time.perf_counter()
+    a = run_loop_graphs(base, loop9)
+    parts = ("correct_front", "covis_read", "fuse", "optimize_essential", "correct")
+    sp, kf = loop["span_ms"], scale["keyframe_span_ms"]
+    b = {"9": dict({k: sp.get(k) for k in parts}, fuses=len(a["fuse_ids"]), spike_ratio=loop["spike_ratio"],
+                   closure_frame=loop["closure_frame"], max_after_closure_ms=loop["max_after_closure_ms"],
+                   median_frame_ms=loop["median_frame_ms"]),
+         "14c": dict({k: kf.get(k) for k in parts}, spike_ratio=scale["spike_ratio"],
+                     max_after_closure_ms=scale["max_after_closure_ms"], median_ms=scale["median_ms"]),
+         "eager_before": EAGER_LOOP}
+    print(f"[18/18] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
+    c = dict(loop_calls=scale["loop_calls"], grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]],
+             grow_call_ms=[g["grow_call_ms"] for g in scale["grow"]], peak_mem_mib=scale["peak_mem_mib"],
+             peak_mem_mib_before=EAGER_LOOP["14c"]["peak_mem_mib"])
+    print(f"[18/18] c. scale run: {json.dumps(c)}", flush=True)
+    caps = {n: v["captures"] for n, v in scale["loop_calls"].items()}
+    if any(caps.get(n) != 1 + len(scale["grow"]) for n in LOOP_PROGRAMS):
+        raise AssertionError(f"18c: loop-graph captures {caps}, want one at the warm-up and one a grow "
+                             f"({len(scale['grow'])} grows)")
+    print(f"[18/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _frame_ms(records, keyframe=None):
@@ -2811,12 +3030,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/17] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/18] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/17] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/18] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -2832,21 +3051,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/17] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/18] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/17] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/18] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/17] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/18] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/17] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/18] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -2856,7 +3075,7 @@ def main() -> int:
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     with _RelocCalls("7") as reloc7:
         reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/17] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/18] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -2864,16 +3083,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/17] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/18] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/17] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/18] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
-    with _EssentialCalls() as spied, _GBACalls() as gba9:
+    with _EssentialCalls() as spied, _GBACalls() as gba9, _LoopCalls() as loop9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/17] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/18] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -2893,7 +3112,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/17] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/18] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -2904,7 +3123,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/17] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/18] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -2913,23 +3132,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/17] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/18] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/17] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/18] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/17] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/18] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/17")
-    print(f"[11/17] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/18")
+    print(f"[11/18] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -2940,31 +3159,32 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/17] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/17] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/18] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/18] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/17] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/18] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/17] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/18] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/17] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/18] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
     graph_launches = run_graph_phase(map_cfg, base, spied, loop, scale)
     run_gba_reloc_phase(base, gba9, reloc7.calls + reloc14,
                         {"7": reloc["reloc_ms"], "14a": scale["kidnap_ms"]}, scale)
+    run_loop_phase(base, loop9, loop, scale)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,

@@ -105,13 +105,23 @@ def rebuild(vocab: Vocabulary, state: MapState, max_words: int = 1024,
 def add_keyframe(
     db: KeyFrameDB, vocab: Vocabulary, kf_id, desc: torch.Tensor, valid: torch.Tensor
 ) -> KeyFrameDB:
-    """Compute and store the keyframe's BoW row (KeyFrameDB::addKeyFrame)."""
+    """Compute and store the keyframe's BoW row (KeyFrameDB::addKeyFrame) in
+    a new database (``write_row_`` stores in place)."""
     v = sparse_bow(vocab, transform(vocab, desc, valid), db.max_words)
     row = kf_index(kf_id, desc.device)
     return KeyFrameDB(
         word_ids=db.word_ids.index_copy(0, row, v.ids[None]),
         weights=db.weights.index_copy(0, row, v.weights[None]),
     )
+
+
+def write_row_(db: KeyFrameDB, kf_id, v: BowVec) -> None:
+    """Store ``v`` as keyframe ``kf_id``'s row of ``db`` in place: the
+    database stays at its addresses, which a captured graph reads and
+    writes."""
+    row = kf_index(kf_id, v.ids.device)
+    db.word_ids.index_copy_(0, row, v.ids[None])
+    db.weights.index_copy_(0, row, v.weights[None])
 
 
 def query_scores(

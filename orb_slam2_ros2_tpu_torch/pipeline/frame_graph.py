@@ -232,6 +232,25 @@ def held_addresses(held: Optional[tuple], tensors, what: str, graph: str) -> tup
     return ptrs
 
 
+def donating(program: Callable, nbytes: dict, key) -> Callable:
+    """``program(storage, *inputs) -> (new map, *outputs)`` as a
+    ``StepGraph`` program over ``(*inputs, storage)``: it writes the fields
+    of the new map that changed into the storage (``copy_into``, inside the
+    graph: JAX donates the map) and returns only the outputs, an output
+    that views the storage cloned before the write; the bytes it writes go
+    to ``nbytes[key]``."""
+
+    def donated(*args):
+        *ins, storage = args
+        new, *outs = program(storage, *ins)
+        held = {t.untyped_storage().data_ptr() for t in storage}
+        outs = tree_map(lambda t: t.clone() if t.untyped_storage().data_ptr() in held else t, tuple(outs))
+        nbytes[key] = copy_into(storage, new)
+        return outs
+
+    return donated
+
+
 def id_tensor(v, device) -> torch.Tensor:
     """An id (host int or tensor) as an int32 [1] tensor on ``device``; a
     host int is filled in by a kernel, not copied from the host."""
@@ -280,15 +299,7 @@ class KeyframeGraphs:
         self._map_ptrs = held_addresses(self._map_ptrs, mapstate, "the map storage", "keyframe graph")
         step = self._steps.get(key)
         if step is None:
-            nbytes = self._bytes
-
-            def donated(*args):
-                *ins, storage = args
-                new, *outs = program(storage, *ins)
-                nbytes[key] = copy_into(storage, new)
-                return tuple(outs)
-
-            step = self._steps[key] = StepGraph(donated, capture=self.capture)
+            step = self._steps[key] = StepGraph(donating(program, self._bytes, key), capture=self.capture)
         out = step(*inputs, fixed=(mapstate,))
         self.copied_bytes += self._bytes[key]
         return out

@@ -18,23 +18,28 @@ src/LoopClosing.cc, src/KeyFrameDB.cc):
   Without a mesh the essential graph is ``EssentialGraph``: three captured
   CUDA graphs on the card (JAX jits it as ``_essential``).
 
-Every stage takes host ints for keyframe ids (the essential graph int32 [1]
-device tensors) and never writes into the map it is given.  A stage's results stay on the device; its few gate counts go
-to a pinned host buffer behind a CUDA event and are read on a later frame.
-With a device ``mesh`` (``parallel/mesh.py``) ``correct`` shards the
-essential graph's edges and the synchronous global BA's points over it.
+The module functions take keyframe ids as host ints or int [1] device
+tensors and gather with them on the device, and none writes into the map it
+is given.  ``LoopGraphs`` runs detection, the three stages, the group
+correction with the matched-point fuse, and each loop-group fuse as captured
+CUDA graphs on the card (JAX jits them), ids as int32 [1] tensors, writing
+the database row and the corrected map into their storage in place.  A
+stage's results stay on the device; its few gate counts go to a pinned host
+buffer behind a CUDA event and are read on a later frame.  With a device
+``mesh`` (``parallel/mesh.py``) ``correct`` shards the essential graph's
+edges and the synchronous global BA's points over it.
 """
 
 from __future__ import annotations
 
 import contextlib
 from functools import partial
-from typing import List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from ..bow.keyframe_db import KeyFrameDB, add_keyframe, find_loop_candidates, sparse_bow
+from ..bow.keyframe_db import BowVec, KeyFrameDB, find_loop_candidates, sparse_bow, write_row_
 from ..bow.vocabulary import Vocabulary, transform
 from ..config import SLAMConfig
 from ..geometry import se3, sim3
@@ -49,9 +54,10 @@ from ..mapstate.map_state import (
     kf_index,
     merge_mappoints,
 )
-from ..mapstate.mapping import _set_covis_row, fuse_candidates_into_keyframe
+from ..mapstate.mapping import _row, _set_covis_row, fuse_candidates_into_keyframe
 from ..matching.matcher import BIG, best_match, mutual_filter
 from ..ops.hamming import hamming_matrix
+from ..solvers.epnp import uniform_draw
 from ..solvers.global_ba import global_ba
 from ..solvers.pose_graph import (
     DENSE_MAX_K,
@@ -63,7 +69,7 @@ from ..solvers.pose_graph import (
 )
 from ..solvers.sim3_solver import optimize_sim3, ransac_sim3
 from ..utils import mask_from_ids, set_drop, topk_bounded
-from .frame_graph import StepGraph, id_tensor
+from .frame_graph import StepGraph, donating, id_tensor, tree_leaves
 
 
 class HostCopy:
@@ -105,7 +111,7 @@ def _log_scale(scale_factor: float) -> float:
     return float(np.log(np.float32(scale_factor)))
 
 
-def match_mappoint_features(state: MapState, kf1: int, kf2: int, *, max_dist: int = 50,
+def match_mappoint_features(state: MapState, kf1, kf2, *, max_dist: int = 50,
                             ratio: float = 0.75):
     """Dense hamming matching between the map-point-bearing features of two
     keyframes (in place of the BoW-bucketed searchByBow,
@@ -114,10 +120,12 @@ def match_mappoint_features(state: MapState, kf1: int, kf2: int, *, max_dist: in
     N = state.kf_uv.shape[1]
     M = state.mp_capacity
     dev = state.kf_uv.device
-    has1 = state.kf_feat_valid[kf1] & (state.kf_mp_idx[kf1] >= 0)
-    has2 = state.kf_feat_valid[kf2] & (state.kf_mp_idx[kf2] >= 0)
+    k1, k2 = kf_index(kf1, dev), kf_index(kf2, dev)
+    mp1, mp2_all = _row(state.kf_mp_idx, k1), _row(state.kf_mp_idx, k2)
+    has1 = _row(state.kf_feat_valid, k1) & (mp1 >= 0)
+    has2 = _row(state.kf_feat_valid, k2) & (mp2_all >= 0)
     masked = torch.where(has1[:, None] & has2[None, :],
-                         hamming_matrix(state.kf_desc[kf1], state.kf_desc[kf2]), BIG)
+                         hamming_matrix(_row(state.kf_desc, k1), _row(state.kf_desc, k2)), BIG)
     best = masked.amin(dim=1)
     bj = masked.argmin(dim=1)
     cols = torch.arange(N, device=dev)
@@ -125,12 +133,12 @@ def match_mappoint_features(state: MapState, kf1: int, kf2: int, *, max_dist: in
     ok = (best <= max_dist) & (best.float() < ratio * second.float())
     ok = ok & (masked.argmin(dim=0)[bj] == cols)                   # mutual best
 
-    mp1 = state.kf_mp_idx[kf1]
-    mp2 = state.kf_mp_idx[kf2][bj]
-    pc1 = se3.apply(state.kf_Tcw[kf1], state.mp_pos[mp1.clamp(0, M - 1).long()])
-    pc2 = se3.apply(state.kf_Tcw[kf2], state.mp_pos[mp2.clamp(0, M - 1).long()])
+    mp2 = mp2_all[bj]
+    pc1 = se3.apply(_row(state.kf_Tcw, k1), state.mp_pos[mp1.clamp(0, M - 1).long()])
+    pc2 = se3.apply(_row(state.kf_Tcw, k2), state.mp_pos[mp2.clamp(0, M - 1).long()])
     ok = ok & (pc1[:, 2] > 0) & (pc2[:, 2] > 0)
-    return ok, bj.to(torch.int32), pc1, pc2, state.kf_octave[kf1], state.kf_octave[kf2][bj], mp1, mp2
+    return (ok, bj.to(torch.int32), pc1, pc2, _row(state.kf_octave, k1), _row(state.kf_octave, k2)[bj],
+            mp1, mp2)
 
 
 def _predict_level(max_dist, d, scale_factor: float, n_levels: int):
@@ -147,8 +155,8 @@ def _in_image(uv, width: int, height: int):
 def search_by_sim3_pair(
     state: MapState,
     cam: CameraParams,
-    kf_cur: int,
-    kf_cand: int,
+    kf_cur,
+    kf_cand,
     S12: sim3.Sim3,
     ok: torch.Tensor,
     bj: torch.Tensor,
@@ -172,34 +180,36 @@ def search_by_sim3_pair(
     M = state.mp_capacity
     dev = ok.device
 
-    def side(kf):
-        mp = state.kf_mp_idx[kf]
+    k_cur, k_cand = kf_index(kf_cur, dev), kf_index(kf_cand, dev)
+
+    def side(k):
+        mp = _row(state.kf_mp_idx, k)
         mpc = mp.clamp(0, M - 1).long()
-        has = state.kf_feat_valid[kf] & (mp >= 0) & state.mp_valid[mpc]
-        pc = se3.apply(state.kf_Tcw[kf], state.mp_pos[mpc])
+        has = _row(state.kf_feat_valid, k) & (mp >= 0) & state.mp_valid[mpc]
+        pc = se3.apply(_row(state.kf_Tcw, k), state.mp_pos[mpc])
         return has, pc, state.mp_min_dist[mpc], state.mp_max_dist[mpc]
 
-    has1, pc1, minD1, maxD1 = side(kf_cur)
-    has2, pc2, minD2, maxD2 = side(kf_cand)
-    D = hamming_matrix(state.kf_desc[kf_cur], state.kf_desc[kf_cand])
+    has1, pc1, minD1, maxD1 = side(k_cur)
+    has2, pc2, minD2, maxD2 = side(k_cand)
+    D = hamming_matrix(_row(state.kf_desc, k_cur), _row(state.kf_desc, k_cand))
     matched2 = mask_from_ids(torch.where(ok, bj, N), N)
 
-    def one_direction(p_src_cam, S_to_other, src_free, src_minD, src_maxD, tgt_kf, tgt_has_mp, dist):
+    def one_direction(p_src_cam, S_to_other, src_free, src_minD, src_maxD, tgt_k, tgt_has_mp, dist):
         p_t = sim3.apply(S_to_other, p_src_cam)
         uv_t, in_front = project(cam, p_t)
         d = torch.linalg.vector_norm(p_t, dim=-1) / S_to_other.s
         dist_ok = (d >= 0.8 * src_minD) & (d <= 1.2 * src_maxD)
         lvl = _predict_level(src_maxD, d, scale_factor, n_levels)
         r = th * torch.pow(scale_factor, lvl.float())
-        tgt_uv, tgt_oct = state.kf_uv[tgt_kf], state.kf_octave[tgt_kf]
+        tgt_uv, tgt_oct = _row(state.kf_uv, tgt_k), _row(state.kf_octave, tgt_k)
         in_area = ((uv_t[:, None, 0] - tgt_uv[None, :, 0]).abs() <= r[:, None]) & (
             (uv_t[:, None, 1] - tgt_uv[None, :, 1]).abs() <= r[:, None])
         oct_ok = (tgt_oct[None, :] >= (lvl - 1)[:, None]) & (tgt_oct[None, :] <= (lvl + 1)[:, None])
         q_ok = src_free & in_front & _in_image(uv_t, width, height) & dist_ok
         return best_match(dist, in_area & oct_ok & tgt_has_mp[None, :] & q_ok[:, None], max_dist, ratio)
 
-    fwd = one_direction(pc1, sim3.inverse(S12), has1 & ~ok, minD1, maxD1, kf_cand, has2, D)
-    bwd = one_direction(pc2, S12, has2 & ~matched2, minD2, maxD2, kf_cur, has1, D.T)
+    fwd = one_direction(pc1, sim3.inverse(S12), has1 & ~ok, minD1, maxD1, k_cand, has2, D)
+    bwd = one_direction(pc2, S12, has2 & ~matched2, minD2, maxD2, k_cur, has1, D.T)
 
     ok2 = ok
     bj2 = torch.where(ok, bj, -1)
@@ -218,28 +228,30 @@ def search_by_sim3_pair(
     return ok2, torch.where(ok2, bj2, -1).to(torch.int32), ok2.to(torch.int32).sum().to(torch.int32)
 
 
-def gather_match_pairs(state: MapState, kf_cur: int, kf_cand: int, ok, bj):
+def gather_match_pairs(state: MapState, kf_cur, kf_cand, ok, bj):
     """Camera-frame point pairs + octaves of a per-current-feature match set
     (the inputs of Sim3 RANSAC / OptimizeSim3): (ok, pc1, pc2, oct1, oct2,
     mp2)."""
     M = state.mp_capacity
+    k_cur, k_cand = kf_index(kf_cur, bj.device), kf_index(kf_cand, bj.device)
     bjc = bj.clamp(0, state.kf_uv.shape[1] - 1).long()
-    mp1 = state.kf_mp_idx[kf_cur]
-    mp2 = state.kf_mp_idx[kf_cand][bjc]
-    pc1 = se3.apply(state.kf_Tcw[kf_cur], state.mp_pos[mp1.clamp(0, M - 1).long()])
-    pc2 = se3.apply(state.kf_Tcw[kf_cand], state.mp_pos[mp2.clamp(0, M - 1).long()])
+    mp1 = _row(state.kf_mp_idx, k_cur)
+    mp2 = _row(state.kf_mp_idx, k_cand)[bjc]
+    pc1 = se3.apply(_row(state.kf_Tcw, k_cur), state.mp_pos[mp1.clamp(0, M - 1).long()])
+    pc2 = se3.apply(_row(state.kf_Tcw, k_cand), state.mp_pos[mp2.clamp(0, M - 1).long()])
     ok = ok & (pc1[:, 2] > 0) & (pc2[:, 2] > 0) & (mp1 >= 0) & (mp2 >= 0)
-    return ok, pc1, pc2, state.kf_octave[kf_cur], state.kf_octave[kf_cand][bjc], mp2
+    return ok, pc1, pc2, _row(state.kf_octave, k_cur), _row(state.kf_octave, k_cand)[bjc], mp2
 
 
-def loop_group_snapshot(state: MapState, kf_cand: int, *, min_covis_weight: int, max_mps: int) -> LocalMap:
+def loop_group_snapshot(state: MapState, kf_cand, *, min_covis_weight: int, max_mps: int) -> LocalMap:
     """The candidate keyframe's covisibility group and every map point it
     observes (getConnectedKfs, LoopClosing.cc:381-401), compacted to
     ``max_mps`` slots by id (lowest first)."""
     K, M = state.kf_capacity, state.mp_capacity
     dev = state.covis.device
-    kf_mask = (state.covis[kf_cand] >= min_covis_weight) & state.kf_valid
-    kf_mask = torch.where(torch.arange(K, device=dev) == kf_cand, state.kf_valid[kf_cand], kf_mask)
+    k = kf_index(kf_cand, dev)
+    kf_mask = (_row(state.covis, k) >= min_covis_weight) & state.kf_valid
+    kf_mask = torch.where(torch.arange(K, device=dev) == k, _row(state.kf_valid, k), kf_mask)
     rows = torch.where(kf_mask[:, None], state.kf_mp_idx, -1)
     mp_mask = mask_from_ids(rows, M) & state.mp_valid
     score = torch.where(mp_mask, 1 + torch.arange(M, dtype=torch.int32, device=dev), 0)
@@ -257,7 +269,7 @@ def loop_group_snapshot(state: MapState, kf_cand: int, *, min_covis_weight: int,
 def search_loop_group_projection(
     state: MapState,
     cam: CameraParams,
-    kf_cur: int,
+    kf_cur,
     S_cw: sim3.Sim3,
     group: LocalMap,
     matched_mp: torch.Tensor,
@@ -290,20 +302,21 @@ def search_loop_group_projection(
     lvl = _predict_level(group.max_dist, d, scale_factor, n_levels)
     r = th * torch.pow(scale_factor, lvl.float())
 
-    cur_uv, cur_oct = state.kf_uv[kf_cur], state.kf_octave[kf_cur]
+    k = kf_index(kf_cur, matched_mp.device)
+    cur_uv, cur_oct = _row(state.kf_uv, k), _row(state.kf_octave, k)
     in_area = ((uv_c[:, None, 0] - cur_uv[None, :, 0]).abs() <= r[:, None]) & (
         (uv_c[:, None, 1] - cur_uv[None, :, 1]).abs() <= r[:, None])
     oct_ok = (cur_oct[None, :] >= (lvl - 1)[:, None]) & (cur_oct[None, :] <= (lvl + 1)[:, None])
     q_ok = fresh & in_front & _in_image(uv_c, width, height) & dist_ok & angle_ok
-    cand = (in_area & oct_ok & state.kf_feat_valid[kf_cur][None, :]
+    cand = (in_area & oct_ok & _row(state.kf_feat_valid, k)[None, :]
             & (matched_mp < 0)[None, :] & q_ok[:, None])
-    m = best_match(hamming_matrix(group.desc, state.kf_desc[kf_cur]), cand, max_dist, ratio)
+    m = best_match(hamming_matrix(group.desc, _row(state.kf_desc, k)), cand, max_dist, ratio)
     m = mutual_filter(m, N)
     matched_mp2 = set_drop(matched_mp, torch.where(m.found, m.idx, N), group.mp_ids)
     return matched_mp2, (matched_mp2 >= 0).to(torch.int32).sum().to(torch.int32)
 
 
-def attach_matched_mps(state: MapState, kf_cur: int, matched_mp: torch.Tensor) -> MapState:
+def attach_matched_mps(state: MapState, kf_cur, matched_mp: torch.Tensor) -> MapState:
     """Fuse the Sim3-matched loop points into the current keyframe (reference
     correctLoop, LoopClosing.cc:497-513): empty feature slots adopt the loop
     point; occupied ones merge, the current keyframe's own point surviving
@@ -311,9 +324,9 @@ def attach_matched_mps(state: MapState, kf_cur: int, matched_mp: torch.Tensor) -
     N, M = state.kf_uv.shape[1], state.mp_capacity
     dev = matched_mp.device
     k = kf_index(kf_cur, dev)
-    cur_mp = state.kf_mp_idx[kf_cur]
+    cur_mp = _row(state.kf_mp_idx, k)
     valid_m = (matched_mp >= 0) & state.mp_valid[matched_mp.clamp(0, M - 1).long()]
-    attach = valid_m & (cur_mp < 0) & state.kf_feat_valid[kf_cur]
+    attach = valid_m & (cur_mp < 0) & _row(state.kf_feat_valid, k)
     feats = torch.arange(N, dtype=torch.int32, device=dev)
     row = set_drop(cur_mp, torch.where(attach, feats, N), matched_mp)
     st = state._replace(kf_mp_idx=state.kf_mp_idx.index_copy(0, k, row[None]))
@@ -341,14 +354,22 @@ def fuse_group_into_kfs(
     LoopClosing.cc:515-517: matcher.fuse(pKf, mvLoopGroupMps, map, true, 4.0))."""
     for kf in kf_ids:
         if kf >= 0:
-            state = fuse_candidates_into_keyframe(
-                state, int(kf), cam, group, width=width, height=height, scale_factor=scale_factor,
-                n_levels=n_levels, th=4.0, max_dist=50, ratio=0.8, loop_priority=True,
-            )
+            state = fuse_one(state, cam, int(kf), group, width=width, height=height, scale_factor=scale_factor,
+                             n_levels=n_levels)
     return state
 
 
-def correct_group(state: MapState, kf_cur: int, kf_cand: int, S12: sim3.Sim3, *,
+def fuse_one(state: MapState, cam: CameraParams, kf, group: LocalMap, *, width: int, height: int,
+             scale_factor: float, n_levels: int) -> MapState:
+    """The loop group fused into one keyframe (a host int or an int [1]
+    tensor): the body of ``fuse_group_into_kfs``."""
+    return fuse_candidates_into_keyframe(
+        state, kf, cam, group, width=width, height=height, scale_factor=scale_factor,
+        n_levels=n_levels, th=4.0, max_dist=50, ratio=0.8, loop_priority=True,
+    )
+
+
+def correct_group(state: MapState, kf_cur, kf_cand, S12: sim3.Sim3, *,
                   min_covis_weight: int) -> Tuple[MapState, sim3.Sim3, torch.Tensor]:
     """Pose/point correction of the current covisibility group
     (LoopClosing.cc:458-513): the current keyframe's corrected pose is
@@ -361,10 +382,11 @@ def correct_group(state: MapState, kf_cur: int, kf_cand: int, S12: sim3.Sim3, *,
     every keyframe (the reference's NonCorrectedSim3)."""
     K = state.kf_capacity
     dev = state.kf_Tcw.device
-    S_cw_corr = sim3.compose(S12, sim3.from_se3(state.kf_Tcw[kf_cand]))
-    S_cw_old = sim3.from_se3(state.kf_Tcw[kf_cur])
+    k_cur, k_cand = kf_index(kf_cur, dev), kf_index(kf_cand, dev)
+    S_cw_corr = sim3.compose(S12, sim3.from_se3(_row(state.kf_Tcw, k_cand)))
+    S_cw_old = sim3.from_se3(_row(state.kf_Tcw, k_cur))
     kf_ids = torch.arange(K, device=dev)
-    group_mask = ((state.covis[kf_cur] >= min_covis_weight) & state.kf_valid) | (kf_ids == kf_cur)
+    group_mask = ((_row(state.covis, k_cur) >= min_covis_weight) & state.kf_valid) | (kf_ids == k_cur)
 
     S_all = sim3.from_se3(state.kf_Tcw)
     S_corr = sim3.compose(sim3.compose(S_all, sim3.inverse(S_cw_old)), S_cw_corr)
@@ -379,9 +401,20 @@ def correct_group(state: MapState, kf_cur: int, kf_cand: int, S12: sim3.Sim3, *,
     free = (state.loop_edges[:, 0] < 0).to(torch.int32)
     slot = torch.where(free.sum() > 0, torch.argmax(free), E).reshape(1)
     pair = torch.arange(2, dtype=torch.int32, device=dev)
-    pair = torch.where(pair == 0, kf_cur, kf_cand).to(torch.int32)[None]
+    pair = torch.where(pair == 0, k_cur, k_cand).to(torch.int32)[None]
     loop_edges = set_drop(state.loop_edges, slot, pair)
     return state._replace(kf_Tcw=kf_Tcw, mp_pos=mp_pos, loop_edges=loop_edges), S_all, group_mask
+
+
+def correct_front(state: MapState, kf_cur, kf_cand, S12: sim3.Sim3, matched_mp: torch.Tensor, *,
+                  min_covis_weight: int) -> Tuple[MapState, sim3.Sim3, torch.Tensor, torch.Tensor]:
+    """The correction up to the loop-group fuse: the connections before it
+    (``covis > 0``), ``correct_group``, then ``attach_matched_mps`` (JAX's
+    ``correct_group`` and ``_attach``).  Returns (state, S_nc, group_mask,
+    pre_conn)."""
+    pre_conn = state.covis > 0
+    state, S_nc, group_mask = correct_group(state, kf_cur, kf_cand, S12, min_covis_weight=min_covis_weight)
+    return attach_matched_mps(state, kf_cur, matched_mp), S_nc, group_mask, pre_conn
 
 
 def collect_essential_edges(state: MapState, essential_weight: int, max_edges: int):
@@ -571,6 +604,217 @@ class EssentialGraph:
         return state._replace(kf_Tcw=kf_Tcw, mp_pos=mp_pos)
 
 
+# the RANSAC hypotheses of the Sim3 stage (ransac_sim3's n_hyp)
+SIM3_HYPOTHESES = 64
+# the loop-group snapshot's point slots (JAX's _stage_c: max_mps=8192)
+LOOP_GROUP_MPS = 8192
+
+
+def bow_query(vocab: Vocabulary, desc: torch.Tensor, valid: torch.Tensor, max_words: int) -> BowVec:
+    """The sparse BoW vector of one image's descriptors."""
+    return sparse_bow(vocab, transform(vocab, desc, valid), max_words)
+
+
+def candidate_rows(db: KeyFrameDB, state: MapState, query: BowVec, anchor_kf, *, n_words: int,
+                   min_covis_weight: int) -> torch.Tensor:
+    """Loop candidates of a BoW query anchored at ``anchor_kf``, with their
+    covisibility rows: i32[5, 1 + K], the ids in column 0."""
+    cand_ids, _ = find_loop_candidates(db, state, query, anchor_kf, n_candidates=5, n_words=n_words,
+                                       min_covis_weight=min_covis_weight)
+    rows = state.covis[cand_ids.clamp(0, state.kf_capacity - 1).long()]
+    rows = torch.where((cand_ids >= 0)[:, None], rows, 0)
+    return torch.cat([cand_ids[:, None], rows], dim=1)
+
+
+def detect_program(state: MapState, db: KeyFrameDB, kf_id, *, vocab: Vocabulary, max_words: int,
+                   min_covis_weight: int) -> torch.Tensor:
+    """Registration of keyframe ``kf_id`` — its BoW row written into ``db``
+    in place — and its candidate query (JAX's ``_add_and_detect_program``):
+    i32[5, 1 + K]."""
+    k = kf_index(kf_id, state.kf_desc.device)
+    q = bow_query(vocab, _row(state.kf_desc, k), _row(state.kf_feat_valid, k), max_words)
+    write_row_(db, k, q)
+    return candidate_rows(db, state, q, k, n_words=vocab.n_words, min_covis_weight=min_covis_weight)
+
+
+def frame_detect_program(state: MapState, db: KeyFrameDB, desc, valid, ref_kf, *, vocab: Vocabulary,
+                         max_words: int, min_covis_weight: int) -> torch.Tensor:
+    """Candidate query of a frame's descriptors anchored at ``ref_kf``, no
+    registration (JAX's ``_frame_detect_program``): i32[5, 1 + K]."""
+    return candidate_rows(db, state, bow_query(vocab, desc, valid, max_words), ref_kf, n_words=vocab.n_words,
+                          min_covis_weight=min_covis_weight)
+
+
+def pair_valid(state: MapState, kf_cur, kf_cand) -> torch.Tensor:
+    """A keyframe culled while the deferred cascade spans idle frames
+    invalidates the attempt (the reference's KeyFrame::SetBadFlag hooks)."""
+    dev = state.kf_valid.device
+    return (_row(state.kf_valid, kf_index(kf_cur, dev))
+            & _row(state.kf_valid, kf_index(kf_cand, dev))).to(torch.int32)
+
+
+def _inv_sigma2(octave, scale_factor: float):
+    return torch.pow(1.0 / (scale_factor ** 2), octave.float())
+
+
+def sim3_stage_a(state: MapState, cam: CameraParams, kf_cur, kf_cand, draw: torch.Tensor, *,
+                 fix_scale: bool, chi2_th: float, scale_factor: float):
+    """Descriptor match + Sim3 RANSAC (JAX's ``_stage_a``).  ``draw`` is the
+    uniform draw f32[SIM3_HYPOTHESES, N] (``epnp.uniform_draw``) or integer
+    minimal sets [H, 3].  Returns (S12, ok, bj, gates [n_matches,
+    n_inliers, valid])."""
+    ok, bj, pc1, pc2, oct1, oct2, _, _ = match_mappoint_features(state, kf_cur, kf_cand)
+    sets, u = (None, draw) if draw.is_floating_point() else (draw, None)
+    S12, _, n_in = ransac_sim3(
+        pc1, pc2, ok, cam, _inv_sigma2(oct1, scale_factor), _inv_sigma2(oct2, scale_factor), sets=sets, u=u,
+        n_hyp=SIM3_HYPOTHESES, fix_scale=fix_scale, chi2_th=chi2_th,
+    )
+    n_matches = ok.to(torch.int32).sum().to(torch.int32)
+    return S12, ok, bj, torch.stack([n_matches, n_in.to(torch.int32), pair_valid(state, kf_cur, kf_cand)])
+
+
+def sim3_stage_b(state: MapState, cam: CameraParams, kf_cur, kf_cand, S12: sim3.Sim3, ok, bj, *,
+                 fix_scale: bool, chi2_th: float, width: int, height: int, scale_factor: float, n_levels: int):
+    """searchBySim3 expansion + OptimizeSim3 (JAX's ``_stage_b``): (S12',
+    matched_mp, gates [n_expanded, n_inliers, valid])."""
+    ok, bj, n_exp = search_by_sim3_pair(state, cam, kf_cur, kf_cand, S12, ok, bj, th=7.5, width=width,
+                                        height=height, scale_factor=scale_factor, n_levels=n_levels)
+    ok2, pc1, pc2, oct1, oct2, mp2 = gather_match_pairs(state, kf_cur, kf_cand, ok, bj)
+    S12b, inl2, n_in2 = optimize_sim3(
+        S12, pc1, pc2, ok2, cam, _inv_sigma2(oct1, scale_factor), _inv_sigma2(oct2, scale_factor),
+        fix_scale=fix_scale, chi2_th=chi2_th,
+    )
+    matched_mp = torch.where(ok2 & inl2, mp2, -1)
+    return S12b, matched_mp, torch.stack([n_exp, n_in2.to(torch.int32), pair_valid(state, kf_cur, kf_cand)])
+
+
+def sim3_stage_c(state: MapState, cam: CameraParams, kf_cur, kf_cand, S12: sim3.Sim3, matched_mp, *,
+                 min_covis_weight: int, width: int, height: int, scale_factor: float, n_levels: int):
+    """Loop-group projection (JAX's ``_stage_c``): (matched_mp', group,
+    gates [n_total, valid])."""
+    group = loop_group_snapshot(state, kf_cand, min_covis_weight=min_covis_weight, max_mps=LOOP_GROUP_MPS)
+    k_cand = kf_index(kf_cand, state.kf_Tcw.device)
+    S_cw = sim3.compose(S12, sim3.from_se3(_row(state.kf_Tcw, k_cand)))
+    matched_mp, n_total = search_loop_group_projection(
+        state, cam, kf_cur, S_cw, group, matched_mp, th=10.0, width=width, height=height,
+        scale_factor=scale_factor, n_levels=n_levels)
+    return matched_mp, group, torch.stack([n_total, pair_valid(state, kf_cur, kf_cand)])
+
+
+class LoopGraphs:
+    """JAX's remaining single-device loop-closing programs, one
+    ``StepGraph`` each: ``detect`` (``_add_detect_prog``), ``frame_detect``
+    (``_frame_detect_prog``), ``sim3_a`` / ``sim3_b`` / ``sim3_c``
+    (``_sim3_a/b/c``), ``correct_front`` (``correct_group`` then
+    ``_attach``) and ``fuse_one`` (one keyframe of ``_fuse_group``'s loop).
+
+    Keyframe ids go in as int32 [1] tensors (host ints are filled in on the
+    device), never as host ints a capture would bake in.  The map and the
+    keyframe database are ``fixed``: a graph reads them at their addresses.
+    ``detect`` writes the keyframe's BoW row into the database in place;
+    ``correct_front`` and ``fuse_one`` write the map fields they change into
+    the map storage (``donating``) and return only their small outputs.  A
+    call whose map or database lies at other addresses (or has other
+    shapes) drops that program's graph, and the next capture is made on
+    the new storage.  The RANSAC draws nothing: stage A takes the uniform
+    draw ``u`` (or integer minimal sets) as an input.  ``eager`` holds the
+    programs themselves, with the map first.
+
+    A program captures at its first call on the card and raises if the
+    capture fails; ``capture=False`` runs the same static-buffer wrappers
+    eagerly (the CPU).  ``capture_log`` names each capture in order,
+    ``replays`` counts the replays and ``copied_bytes`` the bytes written
+    into the map storage."""
+
+    def __init__(self, cfg: SLAMConfig, vocab: Vocabulary, *, capture: bool = True):
+        o, c = cfg.orb, cfg.camera
+        mw = cfg.mapping.min_covis_weight
+        geom = dict(width=c.width, height=c.height, scale_factor=o.scale_factor, n_levels=o.n_levels)
+        gates = dict(fix_scale=c.camera_type in (0, 1), chi2_th=cfg.ba.chi2_sim3)   # stereo / RGB-D: bFixScale
+        bow = dict(vocab=vocab, max_words=cfg.bow.max_words_per_query, min_covis_weight=mw)
+        self.eager = dict(
+            detect=partial(detect_program, **bow),
+            frame_detect=partial(frame_detect_program, **bow),
+            sim3_a=partial(sim3_stage_a, scale_factor=o.scale_factor, **gates),
+            sim3_b=partial(sim3_stage_b, **gates, **geom),
+            sim3_c=partial(sim3_stage_c, min_covis_weight=mw, **geom),
+            correct_front=partial(correct_front, min_covis_weight=mw),
+            fuse_one=partial(fuse_one, **geom),
+        )
+        e, self._nbytes = self.eager, {}
+        # the StepGraph programs: inputs first, then the fixed map (and database)
+        self._programs = dict(
+            detect=lambda kf, state, db: e["detect"](state, db, kf),
+            frame_detect=lambda desc, valid, ref, state, db: e["frame_detect"](state, db, desc, valid, ref),
+            sim3_a=lambda kc, kd, draw, cam, state: e["sim3_a"](state, cam, kc, kd, draw),
+            sim3_b=lambda kc, kd, S12, ok, bj, cam, state: e["sim3_b"](state, cam, kc, kd, S12, ok, bj),
+            sim3_c=lambda kc, kd, S12, mm, cam, state: e["sim3_c"](state, cam, kc, kd, S12, mm),
+            correct_front=donating(lambda state, kc, kd, S12, mm: e["correct_front"](state, kc, kd, S12, mm),
+                                   self._nbytes, "correct_front"),
+            fuse_one=donating(lambda state, k, group, cam: (e["fuse_one"](state, cam, k, group),),
+                              self._nbytes, "fuse_one"),
+        )
+        self.vocab = vocab
+        self.capture = capture
+        self.capture_log: list = []
+        self.replays = 0
+        self.copied_bytes = 0
+        self.clear()
+
+    @property
+    def captures(self) -> int:
+        return len(self.capture_log)
+
+    def clear(self) -> None:
+        """Drop every graph (the map storage or the database was replaced)."""
+        self._steps: Dict[str, tuple] = {}   # name -> (StepGraph, addresses of its fixed tensors)
+
+    def _run(self, name: str, fixed: tuple, *inputs):
+        where = tuple((t.data_ptr(), tuple(t.shape)) for t in tree_leaves(fixed))
+        entry = self._steps.get(name)
+        if entry is None or entry[1] != where:
+            self._steps.pop(name, None)   # the old graph goes before the new capture
+            entry = self._steps[name] = (StepGraph(self._programs[name], capture=self.capture), where)
+        step = entry[0]
+        captures, replays = step.captures, step.replays
+        out = step(*inputs, fixed=fixed)
+        if step.captures > captures:
+            self.capture_log.append(name)
+        self.replays += step.replays - replays
+        self.copied_bytes += self._nbytes.get(name, 0)
+        return out
+
+    def detect(self, state: MapState, db: KeyFrameDB, kf_id) -> torch.Tensor:
+        return self._run("detect", (state, db), id_tensor(kf_id, state.kf_desc.device))
+
+    def frame_detect(self, state: MapState, db: KeyFrameDB, desc, valid, ref_kf) -> torch.Tensor:
+        return self._run("frame_detect", (state, db), desc, valid, id_tensor(ref_kf, state.kf_desc.device))
+
+    def sim3_a(self, state: MapState, cam: CameraParams, kf_cur, kf_cand, draw: torch.Tensor):
+        dev = state.kf_Tcw.device
+        return self._run("sim3_a", (state,), id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), draw, cam)
+
+    def sim3_b(self, state: MapState, cam: CameraParams, kf_cur, kf_cand, S12: sim3.Sim3, ok, bj):
+        dev = state.kf_Tcw.device
+        return self._run("sim3_b", (state,), id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), S12, ok, bj, cam)
+
+    def sim3_c(self, state: MapState, cam: CameraParams, kf_cur, kf_cand, S12: sim3.Sim3, matched_mp):
+        dev = state.kf_Tcw.device
+        return self._run("sim3_c", (state,), id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), S12, matched_mp,
+                         cam)
+
+    def correct_front(self, state: MapState, kf_cur, kf_cand, S12: sim3.Sim3, matched_mp):
+        """``correct_front`` into the storage ``state``: returns (S_nc,
+        group_mask, pre_conn)."""
+        dev = state.kf_Tcw.device
+        return self._run("correct_front", (state,), id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), S12,
+                         matched_mp)
+
+    def fuse_one(self, state: MapState, cam: CameraParams, kf, group: LocalMap) -> None:
+        """The loop group fused into keyframe ``kf``, into the storage ``state``."""
+        self._run("fuse_one", (state,), id_tensor(kf, state.kf_Tcw.device), group, cam)
+
+
 @contextlib.contextmanager
 def _no_span(name: str):
     yield
@@ -578,13 +822,19 @@ def _no_span(name: str):
 
 class LoopCloser:
     """The loop closer: vocabulary, keyframe database, consistency chains
-    and the deferred Sim3 cascade.  ``span`` (name → context manager) wraps
-    each stage; the system sets it to time them."""
+    and the deferred Sim3 cascade.  Detection, the three stages, the group
+    correction and the fuse run through ``graphs`` (``LoopGraphs``, captured
+    on the card, built at first use and dropped when the database grows),
+    the essential graph through ``essential``.  ``span`` (name → context
+    manager) wraps the stages that may read back, ``graph_span`` the
+    captured ones; the system sets both to time them."""
 
     def __init__(self, cfg: SLAMConfig, vocab: Vocabulary):
         self.cfg = cfg
         self.vocab = vocab
         self.device = vocab.device
+        # the database storage: rows are written in place, so a captured
+        # graph keeps reading and writing it at its addresses
         self.db = KeyFrameDB.empty(cfg.map.max_keyframes, cfg.bow.max_words_per_query, device=self.device)
         # consistency chains: (covisibility-group set, consecutive count)
         self.consistent_groups: List[Tuple[Set[int], int]] = []
@@ -596,57 +846,56 @@ class LoopCloser:
         # (kf_cur, kf_cand, stage, gate counts) of every stage read back
         self.gate_log: list = []
         self.span = _no_span
+        self.graph_span = _no_span
+        self.graphs: Optional[LoopGraphs] = None
+        self._dropped_bytes = 0   # what dropped loop graphs wrote into the map storage
         # the single-process essential graph, built at its first use (on the
         # card, captured by ``warmup``) and dropped when the capacity grows
         self.essential: Optional[EssentialGraph] = None
         o, c = cfg.orb, cfg.camera
         self._geom = dict(width=c.width, height=c.height, scale_factor=o.scale_factor, n_levels=o.n_levels)
-        self._fix_scale = c.camera_type in (0, 1)   # stereo / RGB-D: bFixScale
 
     def grow(self, n_keyframes: int) -> None:
         """Re-pad the sparse BoW rows when the map's keyframe capacity grows
         (SLAM._grow); row ids are stable, so existing entries carry over.
-        The essential graph of the old capacity is dropped."""
+        The loop graphs and the essential graph of the old capacity are
+        dropped."""
         dK = n_keyframes - self.db.word_ids.shape[0]
         if dK <= 0:
             return
-        self.essential = None
+        self._dropped_bytes = self.copied_bytes
+        self.essential = self.graphs = None
         more = KeyFrameDB.empty(dK, self.db.max_words, device=self.db.word_ids.device)
         self.db = KeyFrameDB(
             word_ids=torch.cat([self.db.word_ids, more.word_ids]),
             weights=torch.cat([self.db.weights, more.weights]),
         )
 
+    @property
+    def copied_bytes(self) -> int:
+        """Bytes the loop graphs wrote into the map storage."""
+        return self._dropped_bytes + (self.graphs.copied_bytes if self.graphs is not None else 0)
+
+    def loop_graphs(self) -> LoopGraphs:
+        """The loop graphs, built at their first use (captured on the card)."""
+        if self.graphs is None:
+            self.graphs = LoopGraphs(self.cfg, self.vocab, capture=self.device.type == "cuda")
+        return self.graphs
+
     def add_keyframe_to_db(self, state: MapState, kf_id: int) -> None:
-        self.db = add_keyframe(self.db, self.vocab, kf_id, state.kf_desc[kf_id], state.kf_feat_valid[kf_id])
+        """Register keyframe ``kf_id`` in the database, in place."""
+        k = kf_index(kf_id, self.device)
+        write_row_(self.db, k, bow_query(self.vocab, _row(state.kf_desc, k), _row(state.kf_feat_valid, k),
+                                         self.db.max_words))
 
     def _read(self, x) -> np.ndarray:
         self.host_reads += isinstance(x, HostCopy) and x.on_device
         return _fetch(x)
 
     # ------------------------------------------------------------------
-    def _candidates(self, state: MapState, query, anchor_kf: int) -> torch.Tensor:
-        """Loop candidates of a BoW query anchored at ``anchor_kf``, with
-        their covisibility rows: i32[5, 1 + K], the ids in column 0."""
-        cand_ids, _ = find_loop_candidates(
-            self.db, state, query, anchor_kf, n_candidates=5, n_words=self.vocab.n_words,
-            min_covis_weight=self.cfg.mapping.min_covis_weight,
-        )
-        rows = state.covis[cand_ids.clamp(0, state.kf_capacity - 1).long()]
-        rows = torch.where((cand_ids >= 0)[:, None], rows, 0)
-        return torch.cat([cand_ids[:, None], rows], dim=1)
-
-    def _query(self, desc, valid):
-        words = transform(self.vocab, desc, valid)
-        return sparse_bow(self.vocab, words, self.cfg.bow.max_words_per_query)
-
     def add_and_detect(self, state: MapState, kf_id: int) -> torch.Tensor:
         """Database registration + candidate query of keyframe ``kf_id``."""
-        q = self._query(state.kf_desc[kf_id], state.kf_feat_valid[kf_id])
-        row = kf_index(kf_id, self.device)
-        self.db = KeyFrameDB(word_ids=self.db.word_ids.index_copy(0, row, q.ids[None]),
-                             weights=self.db.weights.index_copy(0, row, q.weights[None]))
-        return self._candidates(state, q, kf_id)
+        return self.loop_graphs().detect(state, self.db, kf_id)
 
     def detect_async(self, state: MapState, kf_id: int) -> Optional[HostCopy]:
         """Register the keyframe and query the database without a host read.
@@ -666,7 +915,7 @@ class LoopCloser:
         while the map is young; post-closure suppression is the caller's."""
         if ref_kf < 10:
             return None
-        return HostCopy(self._candidates(state, self._query(desc, valid), ref_kf))
+        return HostCopy(self.loop_graphs().frame_detect(state, self.db, desc, valid, ref_kf))
 
     def detect(self, state: MapState, kf_id: int) -> Optional[int]:
         """Registration + consistency-chained detection in one call."""
@@ -705,49 +954,29 @@ class LoopCloser:
         return enough[0] if enough else None
 
     # ------------------------------------------------------------------
-    def _inv_sigma2(self, octave):
-        return torch.pow(1.0 / (self.cfg.orb.scale_factor ** 2), octave.float())
-
-    def _pair_valid(self, state: MapState, kf_cur: int, kf_cand: int) -> torch.Tensor:
-        """A keyframe culled while the deferred cascade spans idle frames
-        invalidates the attempt (the reference's KeyFrame::SetBadFlag hooks)."""
-        return (state.kf_valid[kf_cur] & state.kf_valid[kf_cand]).to(torch.int32)
-
-    def stage_a(self, state: MapState, cam: CameraParams, kf_cur: int, kf_cand: int,
+    def stage_a(self, state: MapState, cam: CameraParams, kf_cur, kf_cand,
                 generator: Optional[torch.Generator] = None, *, sets=None):
-        """Descriptor match + Sim3 RANSAC: (S12, ok, bj, gates [n_matches,
-        n_inliers, valid])."""
-        ok, bj, pc1, pc2, oct1, oct2, _, _ = match_mappoint_features(state, kf_cur, kf_cand)
-        S12, _, n_in = ransac_sim3(
-            pc1, pc2, ok, cam, self._inv_sigma2(oct1), self._inv_sigma2(oct2), generator, sets=sets,
-            fix_scale=self._fix_scale, chi2_th=self.cfg.ba.chi2_sim3,
-        )
-        n_matches = ok.to(torch.int32).sum().to(torch.int32)
-        return S12, ok, bj, torch.stack([n_matches, n_in.to(torch.int32),
-                                         self._pair_valid(state, kf_cur, kf_cand)])
+        """Descriptor match + Sim3 RANSAC (``sim3_stage_a``) through the
+        graph, on the uniform draw taken from ``generator`` first, or on
+        ``sets``: (S12, ok, bj, gates [n_matches, n_inliers, valid])."""
+        dev = state.kf_uv.device
+        if sets is not None:
+            draw = torch.as_tensor(sets, device=dev)
+        elif generator is not None:
+            draw = uniform_draw((), state.kf_uv.shape[1], generator, SIM3_HYPOTHESES, device=dev)
+        else:
+            raise ValueError("stage_a needs a generator or explicit sets")
+        return self.loop_graphs().sim3_a(state, cam, kf_cur, kf_cand, draw)
 
-    def stage_b(self, state: MapState, cam: CameraParams, kf_cur: int, kf_cand: int, S12, ok, bj):
-        """searchBySim3 expansion + OptimizeSim3: (S12', matched_mp, gates
-        [n_expanded, n_inliers, valid])."""
-        ok, bj, n_exp = search_by_sim3_pair(state, cam, kf_cur, kf_cand, S12, ok, bj, th=7.5, **self._geom)
-        ok2, pc1, pc2, oct1, oct2, mp2 = gather_match_pairs(state, kf_cur, kf_cand, ok, bj)
-        S12b, inl2, n_in2 = optimize_sim3(
-            S12, pc1, pc2, ok2, cam, self._inv_sigma2(oct1), self._inv_sigma2(oct2),
-            fix_scale=self._fix_scale, chi2_th=self.cfg.ba.chi2_sim3,
-        )
-        matched_mp = torch.where(ok2 & inl2, mp2, -1)
-        return S12b, matched_mp, torch.stack([n_exp, n_in2.to(torch.int32),
-                                              self._pair_valid(state, kf_cur, kf_cand)])
+    def stage_b(self, state: MapState, cam: CameraParams, kf_cur, kf_cand, S12, ok, bj):
+        """searchBySim3 expansion + OptimizeSim3 (``sim3_stage_b``) through
+        the graph: (S12', matched_mp, gates [n_expanded, n_inliers, valid])."""
+        return self.loop_graphs().sim3_b(state, cam, kf_cur, kf_cand, S12, ok, bj)
 
-    def stage_c(self, state: MapState, cam: CameraParams, kf_cur: int, kf_cand: int, S12, matched_mp):
-        """Loop-group projection: (matched_mp', group, gates [n_total,
-        valid])."""
-        group = loop_group_snapshot(state, kf_cand, min_covis_weight=self.cfg.mapping.min_covis_weight,
-                                    max_mps=8192)
-        S_cw = sim3.compose(S12, sim3.from_se3(state.kf_Tcw[kf_cand]))
-        matched_mp, n_total = search_loop_group_projection(
-            state, cam, kf_cur, S_cw, group, matched_mp, th=10.0, **self._geom)
-        return matched_mp, group, torch.stack([n_total, self._pair_valid(state, kf_cur, kf_cand)])
+    def stage_c(self, state: MapState, cam: CameraParams, kf_cur, kf_cand, S12, matched_mp):
+        """Loop-group projection (``sim3_stage_c``) through the graph:
+        (matched_mp', group, gates [n_total, valid])."""
+        return self.loop_graphs().sim3_c(state, cam, kf_cur, kf_cand, S12, matched_mp)
 
     def _generator(self, seed: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -788,7 +1017,7 @@ class LoopCloser:
         if self.pending_sim3 is not None:
             return
         gen = None if sets is not None else self._generator(kf_cur)
-        with self.span("sim3_a"):
+        with self.graph_span("sim3_a"):
             S12, ok, bj, gates = self.stage_a(state, cam, kf_cur, kf_cand, gen, sets=sets)
         self.pending_sim3 = dict(stage="a", kf_cur=kf_cur, kf_cand=kf_cand, S12=S12, ok=ok, bj=bj,
                                  gates=HostCopy(gates))
@@ -809,7 +1038,7 @@ class LoopCloser:
             if not valid or n_matches < lc.min_bow_matches or n_in < lc.min_sim3_inliers:
                 self.pending_sim3 = None
                 return None
-            with self.span("sim3_b"):
+            with self.graph_span("sim3_b"):
                 S12, matched_mp, gates = self.stage_b(state, cam, kf_cur, kf_cand, p["S12"], p["ok"], p["bj"])
             self.pending_sim3 = dict(stage="b", kf_cur=kf_cur, kf_cand=kf_cand, S12=S12,
                                      matched_mp=matched_mp, gates=HostCopy(gates))
@@ -819,7 +1048,7 @@ class LoopCloser:
             if not valid or n_exp < lc.min_expanded_matches or n_in2 < lc.min_sim3_opt_inliers:
                 self.pending_sim3 = None
                 return None
-            with self.span("sim3_c"):
+            with self.graph_span("sim3_c"):
                 matched_mp, group, gates = self.stage_c(state, cam, kf_cur, kf_cand, p["S12"],
                                                         p["matched_mp"])
             self.pending_sim3 = dict(stage="c", kf_cur=kf_cur, kf_cand=kf_cand, S12=p["S12"],
@@ -832,21 +1061,35 @@ class LoopCloser:
         return kf_cur, kf_cand, p["S12"], p["matched_mp"], p["group"]
 
     # ------------------------------------------------------------------
+    def warm_graphs(self, state: MapState, cam: CameraParams) -> None:
+        """Run every loop graph once, on keyframe 0 against itself, and put
+        the map and the database back as they were: on the card each graph
+        is captured here, on ``state``'s storage and this database, not at
+        the next keyframe or closure."""
+        g = self.loop_graphs()
+        dev = state.kf_Tcw.device
+        saved = [t.clone() for t in (*state, *self.db)]
+        k0 = kf_index(0, dev)
+        g.detect(state, self.db, 0)
+        g.frame_detect(state, self.db, _row(state.kf_desc, k0), _row(state.kf_feat_valid, k0), 0)
+        u = uniform_draw((), state.kf_uv.shape[1], self._generator(0), SIM3_HYPOTHESES, device=dev)
+        S12, ok, bj, _ = g.sim3_a(state, cam, 0, 0, u)
+        S12, matched_mp, _ = g.sim3_b(state, cam, 0, 0, S12, ok, bj)
+        matched_mp, group, _ = g.sim3_c(state, cam, 0, 0, S12, matched_mp)
+        g.correct_front(state, 0, 0, sim3.identity(device=dev), matched_mp)
+        g.fuse_one(state, cam, 0, group)
+        torch._foreach_copy_([*state, *self.db], saved)
+
     def warmup(self, state: MapState, cam: CameraParams, mesh=None) -> None:
-        """Run detection, the three stages and the correction (over ``mesh``
-        when given) once on keyframe 0 against itself and discard the
-        result, so that the first real attempt pays no one-off library load
-        or allocation mid-run.  The map is not written (no stage writes into
-        its input); keyframe 0 is registered in the database, as the JAX
-        warm-up does."""
+        """Run detection, the three stages, the correction's graphs
+        (``warm_graphs``) and the essential graph (over ``mesh`` when given)
+        once on keyframe 0 against itself and discard the results, so that
+        the first real attempt pays no one-off capture, library load or
+        allocation mid-run.  The map is left as it was; keyframe 0 is
+        registered in the database, as the JAX warm-up does."""
+        self.warm_graphs(state, cam)
         self.add_and_detect(state, 0)
-        S12, ok, bj, _ = self.stage_a(state, cam, 0, 0, self._generator(0))
-        S12, matched_mp, _ = self.stage_b(state, cam, 0, 0, S12, ok, bj)
-        matched_mp, group, _ = self.stage_c(state, cam, 0, 0, S12, matched_mp)
-        saved = (self.last_loop_kf, self.consistent_groups)
-        self.correct(state, cam, 0, 0, sim3.identity(device=state.kf_Tcw.device), matched_mp, group,
-                     run_gba=False, mesh=mesh)
-        self.last_loop_kf, self.consistent_groups = saved
+        self.warm_essential(state, mesh)
 
     def _essential_graph(self, device: torch.device) -> EssentialGraph:
         if self.essential is None:
@@ -854,15 +1097,28 @@ class LoopCloser:
                                             capture=device.type == "cuda")
         return self.essential
 
-    def warm_essential(self, state: MapState) -> None:
+    def warm_essential(self, state: MapState, mesh=None) -> None:
         """Run the essential graph once on ``state`` (keyframe 0 against
         itself, nothing moved) and discard the result: on the card the
         graphs of ``state``'s capacity are captured here, not at the next
-        closure."""
+        closure.  With a ``mesh`` the sharded route runs once eagerly."""
         K, dev = state.kf_capacity, state.kf_Tcw.device
         zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-        self._essential_graph(dev)(state, zero, zero, sim3.identity(device=dev), sim3.from_se3(state.kf_Tcw),
-                                   torch.zeros((K,), dtype=torch.bool, device=dev), state.covis > 0)
+        args = (state, zero, zero, sim3.identity(device=dev), sim3.from_se3(state.kf_Tcw),
+                torch.zeros((K,), dtype=torch.bool, device=dev), state.covis > 0)
+        if mesh is None:
+            self._essential_graph(dev)(*args)
+        else:
+            self._essential_mesh(*args, mesh=mesh)
+
+    def _essential_mesh(self, state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn, *, mesh) -> MapState:
+        """The essential graph by the edge-sharded PCG over ``mesh``, eagerly."""
+        return optimize_essential(
+            state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn,
+            essential_weight=self.cfg.loop.essential_graph_weight,
+            pose_graph_fn=partial(optimize_pose_graph, iters=ESSENTIAL_ITERS, mesh=mesh,
+                                  mesh_axis=self.cfg.dist.mesh_axis),
+        )
 
     def correct(
         self,
@@ -876,36 +1132,39 @@ class LoopCloser:
         *,
         run_gba: bool = True,
         mesh=None,
+        in_place: bool = False,
     ) -> MapState:
         """Loop correction (LoopClosing.cc:432-541): group pose/point
-        propagation, matched-point fuse, loop-group fuse into the current
-        keyframe's top-16 covisible neighbours (one read of its covisibility
-        row), essential-graph optimization, and the synchronous global BA
-        when ``run_gba``.  Without a ``mesh`` the essential graph runs as
-        ``EssentialGraph`` (captured on the card); with one it takes the
-        edge-sharded PCG eagerly and the global BA the sharded solve."""
+        propagation and the matched-point fuse (``correct_front``), one read
+        of the current keyframe's covisibility row for its top-16 covisible
+        neighbours (numpy's argsort, as JAX picks them), the loop-group fuse
+        into each (``fuse_one``), essential-graph optimization, and the
+        synchronous global BA when ``run_gba``.  The front and the fuses run
+        through the loop graphs and write into ``state`` itself with
+        ``in_place`` (the system's map storage), else into a copy of it.
+        Without a ``mesh`` the essential graph runs as ``EssentialGraph``
+        (captured on the card); with one it takes the edge-sharded PCG
+        eagerly and the global BA the sharded solve."""
         mw = self.cfg.mapping.min_covis_weight
-        pre_conn = state.covis > 0
-        with self.span("correct_group"):
-            state, S_nc, group_mask = correct_group(state, kf_cur, kf_cand, S12, min_covis_weight=mw)
-        with self.span("fuse"):
-            state = attach_matched_mps(state, kf_cur, matched_mp)
+        g = self.loop_graphs()
+        if not in_place:
+            state = MapState(*(t.clone() for t in state))
+        with self.graph_span("correct_front"):
+            S_nc, group_mask, pre_conn = g.correct_front(state, kf_cur, kf_cand, S12, matched_mp)
+        with self.span("covis_read"):
             w = state.covis[kf_cur].cpu().numpy()
-            ids = np.argsort(-w)[:16]
-            ids = ids[w[ids] >= mw]
-            state = fuse_group_into_kfs(state, cam, group, ids.tolist(), **self._geom)
+        ids = np.argsort(-w)[:16]
+        ids = ids[w[ids] >= mw]
+        with self.graph_span("fuse"):
+            for kf in ids.tolist():
+                g.fuse_one(state, cam, kf, group)
         with self.span("optimize_essential"):
+            dev = state.kf_Tcw.device
+            args = (state, id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), S12, S_nc, group_mask, pre_conn)
             if mesh is None:
-                dev = state.kf_Tcw.device
-                state = self._essential_graph(dev)(state, id_tensor(kf_cur, dev), id_tensor(kf_cand, dev),
-                                                   S12, S_nc, group_mask, pre_conn)
+                state = self._essential_graph(dev)(*args)
             else:
-                state = optimize_essential(
-                    state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn,
-                    essential_weight=self.cfg.loop.essential_graph_weight,
-                    pose_graph_fn=partial(optimize_pose_graph, iters=ESSENTIAL_ITERS, mesh=mesh,
-                                          mesh_axis=self.cfg.dist.mesh_axis),
-                )
+                state = self._essential_mesh(*args, mesh=mesh)
         if run_gba:
             state = global_ba(state, cam, scale_factor=self.cfg.orb.scale_factor,
                               phase_iters=tuple(self.cfg.loop.global_ba_phase_iters),

@@ -669,8 +669,10 @@ class SLAM:
         self.loops_closed = 0
         self._last_closure_fid = -(1 << 30)
         # sync debug mode around the loop stages that may read back (the
-        # resolve, the cascade stages, the correction, the GBA snapshot and
-        # commit); the dispatches and GBA chunks take frame_sync_debug_mode
+        # resolve, the cascade's gate reads, the correction's covisibility
+        # read and essential graph, the GBA snapshot and commit); the
+        # detection dispatches, the captured cascade stages, the correction's
+        # front and fuses, and the GBA chunks take frame_sync_debug_mode
         self.loop_sync_debug_mode: Optional[str] = None
         # pipelined tracking (tracking.pipelined): the dispatched frame not
         # resolved yet, and a relocalization result surfaced on the next call
@@ -686,8 +688,9 @@ class SLAM:
     @property
     def map_copy_bytes(self) -> int:
         """Bytes copied into the map storage: by map assignments and by the
-        keyframe programs' and the GBA commit's writes."""
-        return self._assigned_bytes + self._kf_graphs.copied_bytes + self._gba_graphs.copied_bytes
+        keyframe programs', the GBA commit's and the loop graphs' writes."""
+        loop = self.loop_closer.copied_bytes if self.loop_closer is not None else 0
+        return self._assigned_bytes + self._kf_graphs.copied_bytes + self._gba_graphs.copied_bytes + loop
 
     @map.setter
     def map(self, new: MapState) -> None:
@@ -898,8 +901,9 @@ class SLAM:
         return out
 
     def _keyframe_program(self, name: str):
-        """A keyframe program, loop-detection dispatch or GBA chunk: no host
-        read allowed (``frame_sync_debug_mode``)."""
+        """A keyframe program, loop-detection dispatch, captured loop stage
+        (``LoopCloser.graph_span``) or GBA chunk: no host read allowed
+        (``frame_sync_debug_mode``)."""
         return self._program(name, self.frame_sync_debug_mode)
 
     def _loop_stage(self, name: str):
@@ -1454,8 +1458,9 @@ class SLAM:
         """Double the store capacities as the allocators approach them; a
         keyframe grow re-snapshots ``local`` (its K-sized mask), re-pads the
         place-recognition rows and, on the card, re-captures the essential
-        graph and the relocalization program at the new capacity (the frame,
-        keyframe and GBA graphs re-capture at their next use)."""
+        graph at the new capacity, and the loop graphs and the
+        relocalization program on the new storage (the frame, keyframe and
+        GBA graphs re-capture at their next use)."""
         self.map = grow_map(self.map, kf_capacity=kf_capacity, mp_capacity=mp_capacity)
         if mp_capacity is not None and self._split:
             self._refresh_view()
@@ -1467,6 +1472,8 @@ class SLAM:
                 if self.map_device.type == "cuda" and self.mesh is None:
                     self.loop_closer.warm_essential(self.map)
         if self.map_device.type == "cuda":
+            if self.loop_closer is not None and self.enable_loop_closing:
+                self.loop_closer.warm_graphs(self.map, self.map_cam)
             self._warm_reloc()
 
     def _flush_pending(self, next_kf_arriving: bool) -> None:
@@ -1561,6 +1568,7 @@ class SLAM:
         if self.map_device.type == "cuda":
             self._warm_loop_programs()
         self.loop_closer.span = self._loop_stage
+        self.loop_closer.graph_span = self._keyframe_program
 
     def _warm_loop_programs(self) -> None:
         """Run the loop programs, a GBA chunk (ungated and gated) and its
@@ -1674,7 +1682,7 @@ class SLAM:
         ref_before = self.map.kf_Tcw[self.ref_kf].clone()
         with self._loop_stage("correct"):
             self.map = self.loop_closer.correct(self.map, self.map_cam, kf_id, cand, S12, matched_mp, group,
-                                                run_gba=False, mesh=self.mesh)
+                                                run_gba=False, mesh=self.mesh, in_place=True)
         with self._loop_stage("gba_start"):
             self._pending_gba = start_global_ba(self.map, self.cfg.orb.scale_factor)
         self.loops_closed += 1
@@ -1812,6 +1820,7 @@ class SLAM:
         if vocab is not None:
             self.loop_closer = LoopCloser(self.cfg, vocab)
             self.loop_closer.span = self._loop_stage
+            self.loop_closer.graph_span = self._keyframe_program
             self.loop_closer.db = rebuild(vocab, self.map, max_words=self.cfg.bow.max_words_per_query)
             self._reloc_graph.clear()   # a new vocabulary
             if self.map_device.type == "cuda":

@@ -9,8 +9,9 @@ JAX version takes the same derivatives by ``jax.jacfwd``).  Stereo maps fix
 the scale (``bFixScale``,
 Sim3Solver.h:71-76) by pinning the σ component of the update.
 
-Minimal sets are drawn as in ``solvers/epnp.py``: from a ``torch.Generator``
-by Gumbel top-k, or handed in as ``sets``.
+Minimal sets are drawn as in ``solvers/epnp.py``: by Gumbel top-k from a
+``torch.Generator`` or a uniform draw ``u`` made from one beforehand (a
+captured graph cannot draw from a generator), or handed in as ``sets``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ def ransac_sim3(
     generator: Optional[torch.Generator] = None,
     *,
     sets: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
     n_hyp: int = 64,
     min_set: int = 3,
     fix_scale: bool = True,
@@ -68,11 +70,11 @@ def ransac_sim3(
     are gated by bidirectional reprojection error < ``chi2_th``·σ²
     (Sim3Solver.cc:215-259).  Returns (S12, inliers [N], n_inliers).  The
     minimal sets come from ``sets`` (integer [H, S]) when given, else from
-    ``generator``."""
+    the uniform draw ``u`` ([H, N], ``epnp.uniform_draw``) or ``generator``."""
     if sets is None:
-        if generator is None:
-            raise ValueError("ransac_sim3 needs a generator or explicit sets")
-        sets = sample_minimal_sets(valid, n_hyp, min_set, generator)
+        if generator is None and u is None:
+            raise ValueError("ransac_sim3 needs a generator, a uniform draw or explicit sets")
+        sets = sample_minimal_sets(valid, n_hyp, min_set, generator, u=u)
     sets = sets.long()
     # hypothesis: pc1 ≈ s R pc2 + t
     R, t, s = horn_align(pc2[sets], pc1[sets],

@@ -14,8 +14,10 @@ system's ``GBAGraphs`` captures) and the eager commit, on the map the
 system's commit wrote (the same work): the host wall time untraced
 and traced, kernel launches and memory copies, summed kernel time, the
 device's idle share of the traced wall time and the top kernels
-(``profile_reloc.traced``).  Needs nvcc and a CUDA device; exits non-zero
-without one.
+(``profile_reloc.traced``).  The parts of ``correct`` run eagerly here:
+the system replays the front and the fuses as ``loop_closing.LoopGraphs``
+(``chip_smoke.py`` phase 18 times those replays).  Needs nvcc and a CUDA
+device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -30,21 +32,25 @@ import chip_smoke
 from orb_slam2_ros2_tpu_torch import SLAMConfig
 from orb_slam2_ros2_tpu_torch.ops import _build
 from orb_slam2_ros2_tpu_torch.pipeline import loop_closing
+from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
 from orb_slam2_ros2_tpu_torch.pipeline import system as slam_system
 from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs, step_global_ba
 from orb_slam2_ros2_tpu_torch.solvers.pose_graph import optimize_pose_graph
 from profile_reloc import timed, traced
 
 
-def capture(owner, name: str, store: dict, keep=lambda args: True):
+def capture(owner, name: str, store: dict, keep=lambda args: True, before: bool = False):
     """Wrap ``owner.name`` so that each call's arguments and result land in
-    ``store[name]`` (the last call that ``keep`` accepts)."""
+    ``store[name]`` (the last call that ``keep`` accepts); with ``before``
+    the arguments as they were before the call, cloned (a call that writes
+    into the map it is given)."""
     fn = getattr(owner, name)
 
     def wrapped(*args, **kwargs):
+        kept = tree_map(torch.clone, args) if before and keep(args) else args
         out = fn(*args, **kwargs)
         if keep(args):
-            store[name] = (args, kwargs, out)
+            store[name] = (kept, kwargs, out)
         return out
 
     setattr(owner, name, wrapped)
@@ -59,7 +65,7 @@ def main() -> int:
     cfg = SLAMConfig()
     seen: dict = {}
     # the real closure, not the warm-up's keyframe 0 against itself
-    capture(loop_closing.LoopCloser, "correct", seen, keep=lambda a: a[3] != a[4])
+    capture(loop_closing.LoopCloser, "correct", seen, keep=lambda a: a[3] != a[4], before=True)
     capture(slam_system, "start_global_ba", seen)
     capture(GBAGraphs, "commit", seen)
     chip_smoke.run_loop(cfg)
