@@ -125,18 +125,27 @@ Phases (one line each; any failure raises and exits non-zero):
         events with the peak device memory, and the split tracking 12
         frames at 320×192;
      b. phase 9's loop world with ``dist.n_devices=2`` over those two
-        slots: phase 9's gates, sharded essential-graph steps and sharded
-        GBA chunks counted, keyframes within ±3 of phase 9's, the
-        ``optimize_essential`` and ``gba_chunk`` spans beside phase 9's;
+        slots (one process on one device: ``Mesh.capturable``, so the
+        sharded GBA chunk and the essential graph's sharded GN step replay
+        CUDA graphs): phase 9's gates, the sharded essential-graph steps
+        and sharded GBA chunks counted (the graphs' replays plus the runs
+        outside a capture), keyframes within ±3 of phase 9's, the
+        ``optimize_essential`` and ``gba_chunk`` spans beside phase 9's and
+        the graphs' captures; the closure's chunks and essential-graph
+        inputs are kept for phase 19;
      c. the tracker/mapper split over phase 6's world: phase 6's gates,
         every frame ``OK``, each kernel once a frame (the tracker program
-        replayed as a graph on the tracker device, call 5 traced), the
-        largest pose difference from phase 6's graph run within 5e-4,
-        frame ms and the keyframe-program and ``bookkeep`` spans;
+        replayed as a graph on the tracker device, call 5 traced, and the
+        bookkeeping as a graph on the map device), the largest pose
+        difference from phase 6's graph run within 5e-4, frame ms and the
+        keyframe-program and ``bookkeep`` spans beside phase 6's, the
+        split's captures and bookkeeping replays;
      d. two processes on ``cuda:0`` joined over gloo through the
         ``SLAM_*`` variables (``entry.run_ranks``), one shard each of part
         a's problems: each rank's result against the one-process 2-shard
-        mesh's (bit-equality printed; the CPU tests' tolerances gated).
+        mesh's (bit-equality printed; the CPU tests' tolerances gated); each
+        rank raises if it finds its mesh capturable (the route that stays
+        eager).
 
  14. long runs (the default ``SLAMConfig()``): (a) the adversarial multi-lap
      world of ``validation.py`` (``AdversarialStereoDataset``: depthless
@@ -245,6 +254,33 @@ Phases (one line each; any failure raises and exits non-zero):
      ``optimize_essential``) and the spike ratios of phases 9 and 14c
      beside the eager stages' (``EAGER_LOOP``); (c) the loop-graph
      captures over phase 14c's grows and 14c's peak device memory.
+ 19. the mesh and split graphs (phase 13b and c already run them so): (a)
+     every chunk of 13b's closure (kept by ``_GBACalls``), ungated and
+     gated, over the 2-slot mesh through a fresh ``GBAGraphs`` and through
+     the same wrappers run eagerly, bit-equal, a chunk under sync debug
+     "error", one replay traced (1 graph launch, at most
+     ``GBA_HOST_LAUNCHES`` host launches) beside the trace of the eager
+     ``step_global_ba`` over the mesh (the route before these graphs), and
+     a second snapshot of the same bucket (moved poses and points) against
+     its own eager run; (b) 13b's closure (kept by ``_EssentialCalls``)
+     through a fresh ``EssentialGraph`` over the mesh, bit-equal to the
+     eager ``_essential_mesh``, one replay under sync debug "error", one
+     traced (22 graph launches), and a second closure (another pair and
+     Sim3) against the same wrappers run eagerly; (c) 13c's world again, every bookkeeping
+     call checked as it comes through a fresh ``KeyframeGraphs`` and its
+     eager wrapper on copies of the map storage: outputs and storage
+     bit-equal, the replays under sync debug "error", one traced (1 graph
+     launch); the run's poses bit-equal to 13c's; (d) the route of a mesh
+     that ``Mesh.capturable`` refuses, on the one card through the slots
+     ``["cuda", "cuda:0"]`` (two devices to the rule, one card to CUDA):
+     13b's closure through ``EssentialGraph`` over it (problem and commit
+     captured and replayed, the 20 sharded GN steps eager between them)
+     and 13b's chunks through ``GBAGraphs.step`` over it (the system's
+     chunk: ``step_global_ba``, eagerly), each bit-equal to the eager
+     programs over 13b's mesh, then the last chunk's iterate through the
+     commit graph against ``commit_global_ba``.  Printed: replay and eager
+     spans, each graph's first call (eager run + capture), the memory it
+     holds, and (d) the eager sharded steps and chunks.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -346,6 +382,8 @@ SHELL_PROFILED_CALL = 10  # the traced call of each CLI run: a replay after the
 # multi-device phase: two mesh slots, or the tracker's and the map's device,
 # on the one card
 MULTI_DEVICES = ["cuda:0", "cuda:0"]
+# the same card as two devices to Mesh.capturable: a mesh the rule refuses
+REFUSED_MESH_DEVICES = ["cuda", "cuda:0"]
 SPLIT_POSE_ATOL = 5e-4   # tests/test_split_mode.py:73
 RANKS_TIMEOUT_S = 300.0
 ESSENTIAL_ITERS = 20     # GN steps of the essential graph (LoopCloser.correct)
@@ -398,6 +436,14 @@ EAGER_LOOP = {
                 correct_group=2.581, fuse=201.115, optimize_essential=600.937, correct=795.842,
                 spike_ratio=80.11, peak_mem_mib=3275.5),
 }
+# the mesh and split graphs (phases 13 and 19): the eager figures they
+# replace, by this script's phase 13 on an NVIDIA H100 80GB HBM3 at 700 W at
+# commit fd81c2a (13b's spans over the 2-slot mesh; 13c's bookkeep spans,
+# median and max over 39 frames)
+EAGER_MESH_SPAN_MS = dict(optimize_essential=[4456.73],
+                          gba_chunk=[367.12, 394.741, 360.065, 387.694, 357.384, 351.072])
+EAGER_BOOKKEEP_MS = dict(median=0.8695, max=8.334)
+BOOKKEEP_HOST_LAUNCHES = 30
 
 
 def gpu_line() -> str:
@@ -642,7 +688,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/18] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/19] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -656,7 +702,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/18", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/19", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -785,7 +831,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/18] {json.dumps(rec)}", flush=True)
+        print(f"[7/19] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -854,7 +900,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/18] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/19] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -879,7 +925,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/18", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/19", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -983,6 +1029,7 @@ def run_loop(cfg: SLAMConfig, tag: str = "9/18", devices=None):
                  if k not in ("map_front", "map_tail", "cull_kfs", "loop_detect")},
         keyframe_span_ms={k: dict(n=len(spans[k]), median=statistics.median(spans[k]), max=max(spans[k]))
                           for k in ("map_front", "map_tail", "cull_kfs", "loop_detect") if k in spans},
+        graphs=_solver_graph_counts(slam),
     )
     print(f"[{tag}] loop{' pipelined' if pipelined else ''}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path_len:
@@ -992,6 +1039,19 @@ def run_loop(cfg: SLAMConfig, tag: str = "9/18", devices=None):
     if not ate_final <= ate_live:
         raise AssertionError(f"loop final ATE {ate_final:.4f} m worse than live {ate_live:.4f} m")
     return records, launches, summary
+
+
+def _solver_graph_counts(slam: SLAM) -> dict:
+    """The captures and replays of the SLAM's GBA graphs (the chunk's
+    capture log names its shard count) and of its essential graph's GN
+    step part (the graph of the last mesh asked for)."""
+    gba = slam._gba_graphs
+    ess = slam.loop_closer.essential if slam.loop_closer is not None else None
+    return dict(gba_capture_log=list(gba.capture_log), gba_chunk_replays=gba.chunk_replays,
+                gba_commit_replays=gba.commit_replays, gba_eager_chunks=gba.eager_chunks,
+                essential_shards=ess.mesh.size if ess is not None and ess.mesh is not None else 1,
+                essential_step_captures=ess.parts[1].captures if ess is not None else 0,
+                essential_step_replays=ess.parts[1].replays if ess is not None else 0)
 
 
 def kernel_profile(fn) -> dict:
@@ -1105,8 +1165,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/18")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/18")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/19")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/19")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1342,7 +1402,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/18] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/19] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1360,12 +1420,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/18] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/19] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/18] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/19] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1383,7 +1443,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/18] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/19] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1435,7 +1495,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/18] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/19] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1443,30 +1503,49 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     mesh_cfg = base.replace(dist=dataclasses.replace(base.dist, n_devices=2))
-    with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg,             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/18", devices=MULTI_DEVICES)
-    spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k)}
+    with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg, \
+            _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks, \
+            _EssentialCalls() as ess13, _GBACalls() as gba13:
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/19", devices=MULTI_DEVICES)
+    # the sharded work: the graphs' replays, plus the Python calls that ran
+    # it (a graph's first call runs it eagerly, then calls it again to
+    # record the capture, which runs nothing)
+    g = lp["graphs"]
+    chunk_captures = sum(1 for e in g["gba_capture_log"] if e[0] == "chunk" and e[2] > 1)
+    steps = pcg.calls - g["essential_step_captures"] + g["essential_step_replays"]
+    n_chunks = chunks.calls - chunk_captures + g["gba_chunk_replays"]
+    spans = {k: {"mesh": lp["span_ms"].get(k), "phase 9": loop["span_ms"].get(k),
+                 "eager mesh route (fd81c2a)": EAGER_MESH_SPAN_MS[k]}
              for k in ("optimize_essential", "gba_chunk")}
-    b = dict(sharded_pcg_steps=pcg.calls, sharded_gba_chunks=chunks.calls, closure_frame=lp["closure_frame"],
+    b = dict(sharded_pcg_steps=steps, sharded_gba_chunks=n_chunks,
+             python_calls=dict(pcg=pcg.calls, chunks=chunks.calls), graphs=g,
+             closure_frame=lp["closure_frame"],
              n_keyframes=lp["n_keyframes"], phase9_keyframes=loop["n_keyframes"],
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/18] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/19] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
-    # closure 20 steps and every chunk of the background solve
+    # closure 20 steps and every chunk of the background solve; the mesh is
+    # capturable, so every step after the warm-up's first and every chunk
+    # but the first of each bucket replays a graph
     want = (2 * ESSENTIAL_ITERS, 2 + sum(base.loop.global_ba_phase_iters))
-    if pcg.calls < want[0] or chunks.calls < want[1]:
-        raise AssertionError(f"the loop world ran {pcg.calls} sharded essential-graph steps and "
-                             f"{chunks.calls} sharded GBA chunks, fewer than {want}")
+    if steps < want[0] or n_chunks < want[1]:
+        raise AssertionError(f"the loop world ran {steps} sharded essential-graph steps and "
+                             f"{n_chunks} sharded GBA chunks, fewer than {want}")
+    if g["essential_shards"] != 2 or g["essential_step_replays"] < 2 * ESSENTIAL_ITERS - 1 or \
+            g["gba_chunk_replays"] < sum(base.loop.global_ba_phase_iters) or g["gba_eager_chunks"]:
+        raise AssertionError(f"the mesh route did not replay its graphs: {g}")
     if abs(lp["n_keyframes"] - loop["n_keyframes"]) > 3:
         raise AssertionError(f"mesh: {lp['n_keyframes']} keyframes, phase 9 {loop['n_keyframes']}")
     out["b"] = b
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/18", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/19", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
+    kg = slam._kf_graphs
+    bk = kg._steps.get("bookkeep")
     c = dict(pose_diff_vs_phase6=diff, within_5e4=diff <= SPLIT_POSE_ATOL,
              frame_ms_keyframe=_frame_ms(recs, True), frame_ms_other=_frame_ms(recs, False),
              wall_s_from_call_6=sm["wall_s_from_call_6"], phase6_wall_s_from_call_6=map_summary["wall_s_from_call_6"],
@@ -1474,16 +1553,24 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              phase6_frame_ms_other=map_summary["frame_ms_other"],
              new_keyframes=sm["new_keyframes"], phase6_new_keyframes=map_summary["new_keyframes"],
              ate_live_m=sm["ate_live_m"], ate_final_m=sm["ate_final_m"],
-             spans_ms=sm["program_span_ms"], captures=sm["frame_graph_captures"],
+             spans_ms=sm["program_span_ms"], phase6_spans_ms=map_summary["program_span_ms"],
+             eager_bookkeep_ms_before=EAGER_BOOKKEEP_MS, captures=sm["frame_graph_captures"],
+             map_graph_captures=kg.captures, bookkeep_graph=dict(captures=bk.captures if bk else 0,
+                                                                replays=bk.replays if bk else 0),
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/18] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/19] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
         raise AssertionError(f"the split's poses left phase 6's by {diff} > {SPLIT_POSE_ATOL}")
+    n_bookkeep = sm["program_span_ms"]["bookkeep"]["n"]
+    if bk is None or bk.captures != 1 or bk.replays != n_bookkeep - 1:
+        raise AssertionError(f"the split's bookkeeping: {c['bookkeep_graph']} over {n_bookkeep} frames "
+                             f"(want 1 capture and a replay on every later frame)")
     out["c"] = c
-    del slam
+    out["split"] = dict(cfg=split_cfg, poses=[p for _, p in slam.trajectory])
+    del slam, kg, bk
 
     t0 = time.perf_counter()
     C, P, K = 256, 25000, 512
@@ -1500,9 +1587,11 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/18] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/19] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
+    out["recorded"] = dict(gba=gba13, essential=ess13)
+    out["b_loop"] = lp
     return (loop_launches, split_launches), out
 
 
@@ -1649,7 +1738,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/18] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/19] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1777,7 +1866,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/18] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/19] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1808,7 +1897,7 @@ def run_long(base: SLAMConfig) -> tuple:
         a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/18] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/19] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1821,7 +1910,7 @@ def run_long(base: SLAMConfig) -> tuple:
     c["gba_calls"] = gba14c.summary()
     c["loop_calls"] = loop14c.summary()
     c["kidnap_ms"] = a["kidnap_ms"]
-    print(f"[14/18] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/19] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
@@ -1941,7 +2030,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/18] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/19] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -2034,7 +2123,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/18] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/19] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2160,7 +2249,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/18] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/19] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2205,7 +2294,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/18] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/19] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2238,7 +2327,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/18] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/19] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2253,7 +2342,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2383,7 +2472,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/18] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/19] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2391,19 +2480,20 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
 
 class _EssentialCalls:
     """While active, every ``EssentialGraph`` call keeps its host ms and
-    whether it captured; the last one also its inputs, cloned (the closure
-    phase 16b replays)."""
+    whether it captured; the last one also its inputs, cloned, and its
+    graph's mesh (the closure phases 16b and 19b replay)."""
 
     def __enter__(self):
         from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
         from orb_slam2_ros2_tpu_torch.pipeline import loop_closing
         from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_map
 
-        self.cls, self.calls, self.inputs = loop_closing.EssentialGraph, [], None
+        self.cls, self.calls, self.inputs, self.mesh = loop_closing.EssentialGraph, [], None, None
         orig = self.orig = self.cls.__call__
 
         def spy(graph, state, *args):
             self.inputs = (MapState(*(t.clone() for t in state)), *tree_map(torch.clone, args))
+            self.mesh = graph.mesh
             caps, t0 = graph.captures, time.perf_counter()
             out = orig(graph, state, *args)
             self.calls.append(dict(host_ms=(time.perf_counter() - t0) * 1000.0, captured=graph.captures > caps))
@@ -2416,21 +2506,30 @@ class _EssentialCalls:
         self.cls.__call__ = self.orig
 
 
-def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
+def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/19] b"):
     """16b: the essential graph of phase 9's closure, on the inputs its
-    ``correct`` gave it: the eager program (``optimize_essential``, the
-    mesh route's) against a fresh ``EssentialGraph`` — its first call (eager run
-    and the captures of its three parts, each part's ms), replays bit-equal
-    to eager, one under sync debug "error", one traced (a graph launch for
-    the problem, each GN step and the commit; no kernel launched by the
-    host beyond copies and clones).  Returns the summary."""
+    ``correct`` gave it: the eager program (``optimize_essential``) against
+    a fresh ``EssentialGraph`` — its first call (eager run and the captures
+    of its three parts, each part's ms), replays bit-equal to eager, one
+    under sync debug "error", one traced (a graph launch for the problem,
+    each GN step and the commit; no kernel launched by the host beyond
+    copies and clones).  19b: the same for phase 13b's closure over the
+    graph's mesh (``spied.mesh``; the eager program is ``_essential_mesh``'s),
+    and a second closure (another pair and Sim3) through the fresh graph
+    and through the same wrappers run eagerly.  Returns the summary."""
     from functools import partial
 
+    from orb_slam2_ros2_tpu_torch.geometry.sim3 import Sim3
     from orb_slam2_ros2_tpu_torch.pipeline.loop_closing import EssentialGraph, optimize_essential
     from orb_slam2_ros2_tpu_torch.solvers.pose_graph import optimize_pose_graph
 
     state, kf_cur, kf_cand, S12, S_nc, gmask, pre = spied.inputs
-    weight = base.loop.essential_graph_weight
+    weight, mesh = base.loop.essential_graph_weight, spied.mesh
+    mesh_kw = {} if mesh is None else dict(mesh=mesh, mesh_axis=mesh.axis)
+
+    def eager_program(cur, cand, S):
+        return optimize_essential(state, cur, cand, S, S_nc, gmask, pre, essential_weight=weight,
+                                  pose_graph_fn=partial(optimize_pose_graph, iters=ESSENTIAL_ITERS, **mesh_kw))
 
     def timed(fn):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2442,10 +2541,8 @@ def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
         torch.cuda.synchronize()
         return out, ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1000.0
 
-    want, eager_span, eager_host = timed(lambda: optimize_essential(
-        state, kf_cur, kf_cand, S12, S_nc, gmask, pre, essential_weight=weight,
-        pose_graph_fn=partial(optimize_pose_graph, iters=ESSENTIAL_ITERS)))
-    g = EssentialGraph(essential_weight=weight)
+    want, eager_span, eager_host = timed(lambda: eager_program(kf_cur, kf_cand, S12))
+    g = EssentialGraph(essential_weight=weight, mesh=mesh)
     part_ms = []
     for name, part in zip(("problem", "gn_step", "commit"), g.parts):
         first = part._first
@@ -2489,19 +2586,41 @@ def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict):
         bad.append("the traced replay differs from the eager program")
     if prof["graph_launches"] != ESSENTIAL_ITERS + 2 or prof["launches"] > 200:
         bad.append(f"traced call: {prof['graph_launches']} graph launches, {prof['launches']} host kernel launches")
+    extra, src = {}, "phase9" if mesh is None else "phase13b"
+    if mesh is not None:
+        # a second closure (another pair and Sim3) through the graph and
+        # through the same wrappers run eagerly (the first closure's eager
+        # program is ``_essential_mesh``'s; the CPU tests hold the wrappers
+        # to it bit for bit)
+        wrappers = EssentialGraph(essential_weight=weight, mesh=mesh, capture=False)
+        cur2, cand2 = int(kf_cur) - 1, int(kf_cand) + 1
+        S12b = Sim3(R=S12.R, t=S12.t + 0.05, s=S12.s * 1.01)
+        got2, second_span, _ = timed(lambda: g(state, cur2, cand2, S12b, S_nc, gmask, pre))
+        want2, wrapper_span, _ = timed(lambda: wrappers(state, cur2, cand2, S12b, S_nc, gmask, pre))
+        for f in ("kf_Tcw", "mp_pos"):
+            if not torch.equal(getattr(got2, f), getattr(want2, f)):
+                bad.append(f"second closure: {f} differs from the eager wrappers' run")
+        if torch.equal(got2.kf_Tcw, first.kf_Tcw):
+            bad.append("the second closure gave the first one's poses")
+        extra = dict(shards=mesh.size, second_closure=dict(
+            pair=[cur2, cand2], replay_span_ms=second_span, eager_wrappers_span_ms=wrapper_span,
+            max_abs_diff_vs_first=float((got2.kf_Tcw - first.kf_Tcw).abs().max())))
     summary = dict(
-        kf_capacity=state.kf_capacity, route="dense" if state.kf_capacity <= 256 else "pcg",
-        phase9_optimize_essential_ms=loop["span_ms"].get("optimize_essential"),
-        phase9_essential_calls=spied.calls, eager_essential_s_before=EAGER_ESSENTIAL_S,
+        kf_capacity=state.kf_capacity, route="mesh" if mesh is not None else
+        "dense" if state.kf_capacity <= 256 else "pcg", **extra,
+        **{f"{src}_optimize_essential_ms": loop["span_ms"].get("optimize_essential"),
+           f"{src}_essential_calls": spied.calls},
+        **({"eager_essential_s_before": EAGER_ESSENTIAL_S} if mesh is None else
+           {"eager_mesh_route_ms_before": EAGER_MESH_SPAN_MS["optimize_essential"]}),
         eager_span_ms=eager_span, eager_host_ms=eager_host,
         first_call_ms=first_host, capture_ms_by_part=part_ms,
         held_by_graphs_mib=held / 2 ** 20,
         replay_span_ms=spans, replay_host_ms=hosts, captures=g.captures, replays=g.replays,
         traced={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms", "wall_ms",
                                      "api")})
-    print(f"[16/18] b. essential graph: {json.dumps(summary)}", flush=True)
+    print(f"[{tag}. essential graph: {json.dumps(summary)}", flush=True)
     if bad:
-        raise AssertionError(f"16b: {bad}")
+        raise AssertionError(f"{tag}: {bad}")
     return summary
 
 
@@ -2515,19 +2634,20 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/18] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/19] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
 
 
 class _GBACalls:
     """While active, every ``GBAGraphs`` chunk and commit keeps its host ms,
     a CUDA-event pair around it (read after the run) and whether it
-    captured; the chunks of the newest snapshot and the newest commit also
-    keep their inputs, cloned (the closure phase 17a runs again)."""
+    captured; the chunks of the newest snapshot (with their mesh) and the
+    newest commit also keep their inputs, cloned (the closures phases 17a
+    and 19a run again)."""
 
     def __enter__(self):
         from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
@@ -2553,12 +2673,12 @@ class _GBACalls:
                                    captured=graphs.captures > caps))
             return out
 
-        def spy_step(graphs, pending, cam, *, robust_after, capacity):
+        def spy_step(graphs, pending, cam, *, robust_after, capacity, mesh=None):
             if pending.prob is not self._source:   # a new snapshot
                 self._source, self._prob, self.chunks = pending.prob, tree_map(torch.clone, pending.prob), []
-            self.chunks.append((iterate(pending)._replace(prob=self._prob), cam, robust_after, capacity))
+            self.chunks.append((iterate(pending)._replace(prob=self._prob), cam, robust_after, capacity, mesh))
             return timed("chunk", graphs, lambda: step(graphs, pending, cam, robust_after=robust_after,
-                                                       capacity=capacity))
+                                                       capacity=capacity, mesh=mesh))
 
         def spy_commit(graphs, storage, pending, *, propagate_depth=None):
             self.commit_in = (MapState(*(t.clone() for t in storage)), iterate(pending), propagate_depth)
@@ -2603,7 +2723,7 @@ def _held_mib(reserved0: int) -> float:
     return (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
 
 
-def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
+def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/19] a") -> dict:
     """17a: phase 9's closure (the chunks of its snapshot and its commit,
     kept by ``_GBACalls``) through a fresh ``GBAGraphs`` and through the
     same static-buffer wrappers run eagerly (``capture=False``): every chunk
@@ -2612,7 +2732,11 @@ def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
     of host launches) beside the trace of the unbucketed eager chunk
     (``step_global_ba``, the program before this graph); printed: chunk ms
     each way, the first call's ms (eager run + capture), the memory the
-    graphs hold, and phase 9's own captures and replay spans."""
+    graphs hold, and phase 9's own captures and replay spans.  19a: the
+    same for phase 13b's closure over the mesh its chunks ran on (the
+    unbucketed eager chunk is ``step_global_ba`` over the mesh), and a
+    second snapshot of the bucket (its poses and points moved) through
+    both wrappers, against its own eager run."""
     from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
     from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs, commit_global_ba, step_global_ba
 
@@ -2620,16 +2744,18 @@ def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
     kw = dict(n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo)
     chunks, n_chunks = spied.chunks, sum(base.loop.global_ba_phase_iters)
     if len(chunks) != n_chunks or spied.commit_in is None:
-        raise AssertionError(f"17a: phase 9 kept {len(chunks)} chunks of its closure's snapshot "
+        raise AssertionError(f"{tag}: the run kept {len(chunks)} chunks of its closure's snapshot "
                              f"(want {n_chunks}) and {'a' if spied.commit_in else 'no'} commit")
+    mesh = chunks[0][4]
+    plain_kw = dict(kw, **({} if mesh is None else dict(mesh=mesh, axis=mesh.axis)))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
     eager, graph = GBAGraphs(capture=False, **kw), GBAGraphs(**kw)
 
     def step(g, c):
-        pend, cam, robust_after, capacity = c
-        return g.step(pend, cam, robust_after=robust_after, capacity=capacity)
+        pend, cam, robust_after, capacity, mesh = c
+        return g.step(pend, cam, robust_after=robust_after, capacity=capacity, mesh=mesh)
 
     first, first_span, first_host = _timed_call(lambda: step(graph, chunks[0]))
     held = _held_mib(reserved0)
@@ -2637,28 +2763,50 @@ def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
     for i, c in enumerate(chunks):
         want, e_span, e_host = _timed_call(lambda: step(eager, c))
         got, g_span, g_host = _timed_call(lambda: step(graph, c))
-        pend, cam, robust_after, _ = c
-        plain, p_span, _ = _timed_call(lambda: step_global_ba(pend, cam, robust_after=robust_after, **kw))
+        pend, cam, robust_after = c[:3]
+        # the unbucketed eager chunk: every chunk's without a mesh, the
+        # first one's over a mesh (each costs ~0.4 s there)
+        plain, p_span, _ = (_timed_call(lambda: step_global_ba(pend, cam, robust_after=robust_after, **plain_kw))
+                            if mesh is None or i == 0 else (None, None, None))
         outs = [got] + ([first] if i == 0 else [])
         if not all(torch.equal(o.Tcw, want.Tcw) and torch.equal(o.ptsT, want.ptsT) for o in outs):
             bad.append(f"chunk {i}: the replay differs from the eager wrapper")
         rows.append(dict(chunk=i, gated=pend.chunks_done >= robust_after, eager_span_ms=e_span,
                          replay_span_ms=g_span, replay_host_ms=g_host, unbucketed_eager_span_ms=p_span,
-                         unbucketed_max_abs_diff=[float((plain.Tcw - want.Tcw).abs().max()),
-                                                  float((plain.ptsT - want.ptsT).abs().max())]))
+                         unbucketed_max_abs_diff=None if plain is None else
+                         [float((plain.Tcw - want.Tcw).abs().max()), float((plain.ptsT - want.ptsT).abs().max())]))
     with _sync_error():
         step(graph, chunks[-1])
     torch.cuda.synchronize()
     prof = kernel_profile(lambda: step(graph, chunks[-1]))
     prof.pop("result")
-    pend, cam, robust_after, _ = chunks[-1]
-    eprof = kernel_profile(lambda: step_global_ba(pend, cam, robust_after=robust_after, **kw))
+    pend, cam, robust_after = chunks[-1][:3]
+    eprof = kernel_profile(lambda: step_global_ba(pend, cam, robust_after=robust_after, **plain_kw))
     eprof.pop("result")
     if prof["graph_launches"] != 1 or prof["launches"] > GBA_HOST_LAUNCHES:
         bad.append(f"traced chunk: {prof['graph_launches']} graph launches, {prof['launches']} host kernel "
                    f"launches (at most {GBA_HOST_LAUNCHES}: pads, copies in, the gate, clones out)")
     if graph.captures != 1 or graph.snapshot_loads != 1:
         bad.append(f"{graph.captures} chunk captures, {graph.snapshot_loads} snapshot loads (want 1 and 1)")
+    second = None
+    if mesh is not None:
+        # a second snapshot of the bucket: its poses and points moved
+        prob = pend.prob
+        Tcw2 = prob.cam_Tcw.clone()
+        Tcw2[1:, :3, 3] += 0.02
+        moved = pend._replace(prob=prob._replace(cam_Tcw=Tcw2, pt_pos=prob.pt_pos + 0.01), Tcw=Tcw2,
+                              ptsT=pend.ptsT + 0.01)
+        c2 = (moved, *chunks[-1][1:])
+        want2 = step(eager, c2)
+        got2, span2, _ = _timed_call(lambda: step(graph, c2))
+        if not (torch.equal(got2.Tcw, want2.Tcw) and torch.equal(got2.ptsT, want2.ptsT)):
+            bad.append("second snapshot: the replay differs from its own eager run")
+        last = step(eager, chunks[-1])
+        if torch.equal(got2.Tcw, last.Tcw):
+            bad.append("second snapshot: the replay gave the first snapshot's poses")
+        if graph.captures != 1 or graph.snapshot_loads != 2:
+            bad.append(f"second snapshot: {graph.captures} captures, {graph.snapshot_loads} snapshot loads")
+        second = dict(replay_span_ms=span2, max_abs_diff_vs_first=float((got2.Tcw - last.Tcw).abs().max()))
 
     state, pend, depth = spied.commit_in
     into_eager, into_graph = (MapState(*(t.clone() for t in state)) for _ in range(2))
@@ -2682,10 +2830,12 @@ def run_gba_graph(base: SLAMConfig, spied: _GBACalls) -> dict:
         traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
                                             "wall_ms", "api")},
         traced_unbucketed_eager={k: eprof[k] for k in ("launches", "device_kernels", "kernel_ms", "wall_ms")},
-        phase9=spied.summary(), eager_chunk_ms_before=EAGER_GBA_CHUNK_MS)
-    print(f"[17/18] a. GBA chunk and commit: {json.dumps(summary)}", flush=True)
+        **({"phase9": spied.summary(), "eager_chunk_ms_before": EAGER_GBA_CHUNK_MS} if mesh is None else
+           {"shards": mesh.size, "second_snapshot": second, "phase13b": spied.summary(),
+            "eager_mesh_chunk_ms_before": EAGER_MESH_SPAN_MS["gba_chunk"]}))
+    print(f"[{tag}. {'sharded ' if mesh else ''}GBA chunk and commit: {json.dumps(summary)}", flush=True)
     if bad:
-        raise AssertionError(f"17a: {bad}")
+        raise AssertionError(f"{tag}: {bad}")
     return summary
 
 
@@ -2810,7 +2960,7 @@ def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
         relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
         frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
         traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
-    print(f"[17/18] b. relocalization: {json.dumps(summary)}", flush=True)
+    print(f"[17/19] b. relocalization: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17b: {bad}")
     return summary
@@ -2826,10 +2976,10 @@ def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, re
     run_reloc_graph(reloc_calls, reloc_frame_ms)
     c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
              grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
-    print(f"[17/18] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[17/19] c. scale run: {json.dumps(c)}", flush=True)
     if c["gba"]["commit"]["calls"] < 1:
         raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
-    print(f"[17/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[17/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 class _LoopCalls:
@@ -2983,7 +3133,7 @@ def run_loop_graphs(base: SLAMConfig, spied: _LoopCalls) -> dict:
     kf_ids = [int(f[0]) for f in spied.fuses]
     summary = dict(programs=rows, fuse_ids=kf_ids, held_by_graphs_mib=held, captures=captures,
                    phase9=spied.summary())
-    print(f"[18/18] a. loop graphs: {json.dumps(summary)}", flush=True)
+    print(f"[18/19] a. loop graphs: {json.dumps(summary)}", flush=True)
     if len(captures) != len(rows):
         bad.append(f"captures {captures}: one a program")
     if bad:
@@ -3006,16 +3156,226 @@ def run_loop_phase(base: SLAMConfig, loop9: _LoopCalls, loop: dict, scale: dict)
          "14c": dict({k: kf.get(k) for k in parts}, spike_ratio=scale["spike_ratio"],
                      max_after_closure_ms=scale["max_after_closure_ms"], median_ms=scale["median_ms"]),
          "eager_before": EAGER_LOOP}
-    print(f"[18/18] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
+    print(f"[18/19] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
     c = dict(loop_calls=scale["loop_calls"], grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]],
              grow_call_ms=[g["grow_call_ms"] for g in scale["grow"]], peak_mem_mib=scale["peak_mem_mib"],
              peak_mem_mib_before=EAGER_LOOP["14c"]["peak_mem_mib"])
-    print(f"[18/18] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[18/19] c. scale run: {json.dumps(c)}", flush=True)
     caps = {n: v["captures"] for n, v in scale["loop_calls"].items()}
     if any(caps.get(n) != 1 + len(scale["grow"]) for n in LOOP_PROGRAMS):
         raise AssertionError(f"18c: loop-graph captures {caps}, want one at the warm-up and one a grow "
                              f"({len(scale['grow'])} grows)")
-    print(f"[18/18] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[18/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _bits_equal(xs, ys) -> torch.Tensor:
+    """A device bool: every pair of tensors equal bit for bit (floats
+    compared as their int32 bits); reads nothing back."""
+    ok = torch.ones((), dtype=torch.bool, device=xs[0].device)
+    for a, b in zip(xs, ys):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return torch.zeros_like(ok)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        ok = ok & torch.eq(a, b).all()
+    return ok
+
+
+class _BookkeepCheck:
+    """While active, every ``KeyframeGraphs.bookkeep`` call (the split's
+    per-frame bookkeeping) is first run, on copies of the map storage it is
+    given, through a fresh ``KeyframeGraphs`` over the same program (its
+    calls under sync debug "error") and through the same wrapper run
+    eagerly; the outputs and the storages are compared on the device and
+    read after the run.  The first call of the fresh graph (eager run +
+    capture) is timed and the memory it holds measured; each later call
+    keeps CUDA-event spans of the replay and of the eager wrapper."""
+
+    def __enter__(self):
+        from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+        from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import KeyframeGraphs, tree_leaves
+
+        self.cls, self.orig = KeyframeGraphs, KeyframeGraphs.bookkeep
+        self.graph = self.eager = self.stores = self.last = None
+        self.flags, self.events, self.first_ms, self.held_mib = [], [], None, None
+        orig = self.orig
+
+        def spy(kg, storage, *args):
+            if self.graph is None:
+                self.graph = KeyframeGraphs(None, None, None, kg._bookkeep)
+                self.eager = KeyframeGraphs(None, None, None, kg._bookkeep, capture=False)
+                self.stores = [MapState(*(t.clone() for t in storage)) for _ in range(2)]
+            else:
+                torch._foreach_copy_([*self.stores[0], *self.stores[1]], [*storage, *storage])
+            first = self.graph.captures == 0
+            if first:   # the first tracked frame: no sync debug mode is set yet
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved0, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            with _sync_error():
+                got = orig(self.graph, self.stores[0], *args)
+            ev[1].record()
+            if first:
+                torch.cuda.synchronize()
+                self.first_ms = (time.perf_counter() - t0) * 1000.0
+                self.held_mib = _held_mib(reserved0)
+            ev[2].record()
+            want = orig(self.eager, self.stores[1], *args)
+            ev[3].record()
+            self.flags.append(_bits_equal([*tree_leaves(got), *self.stores[0]],
+                                          [*tree_leaves(want), *self.stores[1]]))
+            if not first:
+                self.events.append(ev)
+            self.last = args
+            return orig(kg, storage, *args)
+
+        KeyframeGraphs.bookkeep = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.bookkeep = self.orig
+
+
+def run_eager_mesh_route(base: SLAMConfig, multi: dict) -> dict:
+    """19d: the route of a mesh that ``Mesh.capturable`` refuses (several
+    processes or GPUs), on the one card through ``REFUSED_MESH_DEVICES``.
+    13b's closure through ``EssentialGraph`` over that mesh, twice (the
+    problem and the commit captured, then replayed; the sharded GN steps
+    eager between them), and 13b's chunks through ``GBAGraphs.step`` over
+    it (the system's chunk: ``step_global_ba``, eagerly, the shards carried
+    from chunk to chunk as the system carries them), each bit-equal to the
+    eager programs over 13b's mesh; then the last chunk's iterate through
+    the commit graph, captured and replayed, against ``commit_global_ba``.
+    Returns the summary."""
+    from functools import partial
+
+    from orb_slam2_ros2_tpu_torch.mapstate.map_state import MapState
+    from orb_slam2_ros2_tpu_torch.parallel import ba_mesh
+    from orb_slam2_ros2_tpu_torch.pipeline.loop_closing import EssentialGraph, optimize_essential
+    from orb_slam2_ros2_tpu_torch.solvers import pose_graph as pg_mod
+    from orb_slam2_ros2_tpu_torch.solvers.global_ba import GBAGraphs, commit_global_ba, step_global_ba
+
+    t0 = time.perf_counter()
+    rec = multi["recorded"]
+    mesh13 = rec["essential"].mesh
+    mesh = ba_mesh(mesh13.size, axis=mesh13.axis, devices=REFUSED_MESH_DEVICES)
+    if mesh.capturable or not mesh13.capturable:
+        raise AssertionError(f"19d: capturable {mesh.capturable} over {REFUSED_MESH_DEVICES}, "
+                             f"{mesh13.capturable} over 13b's mesh")
+    bad = []
+
+    state, kf_cur, kf_cand, S12, S_nc, gmask, pre = rec["essential"].inputs
+    weight = base.loop.essential_graph_weight
+    want, want_span, _ = _timed_call(lambda: optimize_essential(
+        state, kf_cur, kf_cand, S12, S_nc, gmask, pre, essential_weight=weight,
+        pose_graph_fn=partial(pg_mod.optimize_pose_graph, iters=ESSENTIAL_ITERS, mesh=mesh13,
+                              mesh_axis=mesh13.axis)))
+    g = EssentialGraph(essential_weight=weight, mesh=mesh)
+    ess_spans = []
+    with _Spy(pg_mod, "_gn_step_pcg_sharded") as steps:
+        for i in range(2):   # the parts' captures, then their replays
+            out, span, _ = _timed_call(lambda: g(state, kf_cur, kf_cand, S12, S_nc, gmask, pre))
+            ess_spans.append(span)
+            bad += [f"essential graph, call {i}: {f} differs from the eager program over 13b's mesh"
+                    for f in ("kf_Tcw", "mp_pos") if not torch.equal(getattr(out, f), getattr(want, f))]
+    parts = {name: [p.captures, p.replays] for name, p in zip(("problem", "gn_step", "commit"), g.parts)}
+    if steps.calls != 2 * ESSENTIAL_ITERS or parts != dict(problem=[1, 1], gn_step=[0, 0], commit=[1, 1]):
+        bad.append(f"essential graph: {steps.calls} eager sharded steps, parts [captures, replays] {parts}")
+
+    b = base.ba
+    kw = dict(n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo)
+    graphs, out, rows = GBAGraphs(**kw), None, []
+    for i, (pend, cam, robust_after, capacity, _) in enumerate(rec["gba"].chunks):
+        pend = pend if out is None else pend._replace(shards=out.shards)
+        out, span, _ = _timed_call(lambda: graphs.step(pend, cam, robust_after=robust_after, capacity=capacity,
+                                                       mesh=mesh))
+        ref = step_global_ba(pend, cam, robust_after=robust_after, mesh=mesh13, axis=mesh13.axis, **kw)
+        if not (torch.equal(out.Tcw, ref.Tcw) and torch.equal(out.ptsT, ref.ptsT)):
+            bad.append(f"chunk {i}: differs from step_global_ba over 13b's mesh")
+        rows.append(dict(chunk=i, gated=pend.chunks_done >= robust_after, span_ms=span))
+    n_chunks = len(rows)
+    if graphs.eager_chunks != n_chunks or graphs.chunk_replays or graphs.captures:
+        bad.append(f"chunks: {graphs.eager_chunks} eager of {n_chunks}, {graphs.chunk_replays} replays, "
+                   f"{graphs.captures} captures")
+    state, _, depth = rec["gba"].commit_in
+    into = MapState(*(t.clone() for t in state))
+    plain = commit_global_ba(state, out, propagate_depth=depth)
+    commit_spans = []
+    for i in range(2):   # the capture, then a replay on the pre-commit map at the same addresses
+        if i:
+            torch._foreach_copy_(list(into), list(state))
+        _, span, _ = _timed_call(lambda: graphs.commit(into, out, propagate_depth=depth))
+        commit_spans.append(span)
+        bad += [f"commit, call {i}: {n} differs from commit_global_ba"
+                for n, a, p in zip(MapState._fields, into, plain) if not torch.equal(a, p)]
+    if graphs.captures != 1 or graphs.commit_replays != 1:
+        bad.append(f"commit: {graphs.captures} captures, {graphs.commit_replays} replays (want 1 and 1)")
+    d = dict(devices=REFUSED_MESH_DEVICES, capturable=mesh.capturable, shards=mesh.size,
+             essential=dict(eager_program_span_ms=want_span, capture_call_span_ms=ess_spans[0],
+                            replay_call_span_ms=ess_spans[1], eager_sharded_steps=steps.calls,
+                            parts_captures_replays=parts,
+                            phase13b_graph_ms=multi["b"]["spans_ms"]["optimize_essential"]),
+             chunks=dict(eager=graphs.eager_chunks, replays=graphs.chunk_replays, rows=rows,
+                         phase13b_graph_ms=multi["b"]["spans_ms"]["gba_chunk"]),
+             commit=dict(capture_call_span_ms=commit_spans[0], replay_span_ms=commit_spans[1],
+                         captures=graphs.captures, replays=graphs.commit_replays),
+             seconds=time.perf_counter() - t0)
+    print(f"[19/19] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
+    if bad:
+        raise AssertionError(f"19d: {bad}")
+    return d
+
+
+def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
+    """Phase 19: the closure of 13b through fresh mesh graphs (a: every GBA
+    chunk and the commit, a second snapshot; b: the essential graph, a
+    second closure), each against the same wrappers run eagerly, (c)
+    13c's split world again with every bookkeeping call checked as it
+    comes (``_BookkeepCheck``), and (d) 13b's closure over a mesh that is
+    not capturable (``run_eager_mesh_route``).  Returns the launch counts
+    of (c)'s run."""
+    t0 = time.perf_counter()
+    rec = multi["recorded"]
+    run_gba_graph(base, rec["gba"], tag="19/19] a")
+    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/19] b")
+
+    split = multi["split"]
+    with _BookkeepCheck() as check:
+        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/19", devices=MULTI_DEVICES)
+    bad = [i for i, f in enumerate(check.flags) if not bool(f)]
+    diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, split["poses"]))
+    storage, args = check.stores[0], check.last
+    with _sync_error():
+        check.graph.bookkeep(storage, *args)
+    torch.cuda.synchronize()
+    prof = kernel_profile(lambda: check.graph.bookkeep(storage, *args))
+    prof.pop("result")
+    replay = [ev[0].elapsed_time(ev[1]) for ev in check.events]
+    eager = [ev[2].elapsed_time(ev[3]) for ev in check.events]
+    c = dict(calls=len(check.flags), bit_equal=not bad, first_call_ms=check.first_ms,
+             held_by_graph_mib=check.held_mib, captures=check.graph.captures, replays=check.graph.replays,
+             replay_span_ms=dict(median=statistics.median(replay), max=max(replay)),
+             eager_wrapper_span_ms=dict(median=statistics.median(eager), max=max(eager)),
+             phase13c_bookkeep_ms=multi["c"]["spans_ms"]["bookkeep"], pose_diff_vs_13c=diff,
+             traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
+                                                 "wall_ms", "api")})
+    print(f"[19/19] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
+    problems = [f"call {i}: the replay or the storage differs from the eager wrapper" for i in bad]
+    if diff != 0.0:
+        problems.append(f"the rerun's poses left 13c's by {diff}")
+    if check.graph.captures != 1 or len(check.flags) != sm["program_span_ms"]["bookkeep"]["n"]:
+        problems.append(f"{check.graph.captures} captures over {len(check.flags)} checked calls")
+    if prof["graph_launches"] != 1 or prof["launches"] > BOOKKEEP_HOST_LAUNCHES:
+        problems.append(f"traced replay: {prof['graph_launches']} graph launches, {prof['launches']} host kernel "
+                        f"launches (at most {BOOKKEEP_HOST_LAUNCHES}: copies in, the id fill, clones out)")
+    if problems:
+        raise AssertionError(f"19c: {problems}")
+    del slam, check, storage, args
+    run_eager_mesh_route(base, multi)
+    print(f"[19/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [launches]
 
 
 def _frame_ms(records, keyframe=None):
@@ -3030,12 +3390,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/18] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/19] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/18] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/19] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -3051,21 +3411,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/18] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/19] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/18] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/19] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/18] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/19] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/18] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/19] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -3075,7 +3435,7 @@ def main() -> int:
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     with _RelocCalls("7") as reloc7:
         reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/18] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/19] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -3083,16 +3443,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/18] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/19] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/18] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/19] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     with _EssentialCalls() as spied, _GBACalls() as gba9, _LoopCalls() as loop9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/18] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/19] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -3112,7 +3472,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/18] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/19] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -3123,7 +3483,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/18] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/19] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -3132,23 +3492,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/18] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/19] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/18] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/19] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/18] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/19] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/18")
-    print(f"[11/18] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/19")
+    print(f"[11/19] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -3159,25 +3519,25 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/18] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/18] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/19] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/19] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/18] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/19] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/18] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/19] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
-    multi_launches, _ = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/18] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    multi_launches, multi = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
+    print(f"[13/19] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
@@ -3185,11 +3545,13 @@ def main() -> int:
     run_gba_reloc_phase(base, gba9, reloc7.calls + reloc14,
                         {"7": reloc["reloc_ms"], "14a": scale["kidnap_ms"]}, scale)
     run_loop_phase(base, loop9, loop, scale)
+    mesh_launches = run_mesh_graphs(base, multi)
+    del multi
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
                      blackout_launches, *shell_launches, *multi_launches, *long_launches,
-                     *remaining_launches, *graph_launches)
+                     *remaining_launches, *graph_launches, *mesh_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

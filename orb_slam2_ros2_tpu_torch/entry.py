@@ -170,14 +170,19 @@ def rank_solves(rank: int, world: int, coordinator: str, device: str, C: int, P:
     """One process of a ``world``-process run (``run_ranks``): joins the
     process group through the ``SLAM_*`` variables over gloo, solves the
     dry run's problems with one shard on ``device`` and saves the results
-    as ``out_dir/rank<rank>.pt``."""
+    as ``out_dir/rank<rank>.pt``.  Its mesh spans several processes, so it
+    is not ``capturable``: the solves run eagerly, and a rank that finds
+    its mesh capturable raises."""
     if threads:
         torch.set_num_threads(threads)
     os.environ.update(SLAM_COORDINATOR=coordinator, SLAM_NUM_PROCESSES=str(world),
                       SLAM_PROCESS_ID=str(rank))
     init_distributed(backend="gloo")
     try:
-        res = sharded_solves(ba_mesh(world, devices=[device]), C, P, K, device)
+        mesh = ba_mesh(world, devices=[device])
+        if mesh.capturable:
+            raise RuntimeError(f"rank {rank}: a mesh over {world} processes was taken for capturable")
+        res = sharded_solves(mesh, C, P, K, device)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -270,11 +275,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     2. the edge-sharded essential-graph PCG at K=512 vertices (more than
        ``DENSE_MAX_K``), against the one-shard PCG;
     3. (n ≥ 2) the tracker/mapper split tracking 12 frames, the map on
-       the second device.
+       the second device: on a card the tracker program and the
+       bookkeeping replay CUDA graphs, as the keyframe programs do.
 
     Prints one ``dryrun i/3`` line each and returns the timings (ms, CUDA
-    events on a card), the peak device memory and the largest differences
-    between the sharded and one-shard results."""
+    events on a card), the peak device memory, the largest differences
+    between the sharded and one-shard results and the split's map-side
+    graph captures and replays (the wrappers' calls on the CPU)."""
     mesh = ba_mesh(n_devices, devices=devices)
     dev = mesh.device if mesh is not None else torch.device(devices[0] if devices else "cpu")
     on_card = dev.type == "cuda"
@@ -322,7 +329,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
             spans.setdefault(name, []).append(start.elapsed_time(end))
         frame_ms = float(np.median(slam.frame_times_ms[2:]))
         out.update(split_frame_ms=frame_ms, split_keyframes=slam.n_keyframes,
-                   split_span_ms={k: float(np.median(v)) for k, v in spans.items()})
+                   split_span_ms={k: float(np.median(v)) for k, v in spans.items()},
+                   split_map_graphs=dict(captures=slam._kf_graphs.captures, replays=slam._kf_graphs.replays))
         print(f"dryrun 3/3: tracker/mapper role split ok (map on {slam.map.kf_Tcw.device}, tracking on "
               f"{slam.last.Tcw.device}) | median frame {frame_ms:.1f} ms over {SPLIT_FRAMES} frames, "
               f"{slam.n_keyframes} keyframes", flush=True)

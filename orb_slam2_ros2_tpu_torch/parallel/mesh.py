@@ -143,6 +143,28 @@ class Mesh:
     def multi_process(self) -> bool:
         return len({r for r, _ in self.slots}) > 1
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a sharded program over this mesh can be captured as one
+        CUDA graph (on a CUDA device; elsewhere the same wrappers run
+        eagerly).  Decided by the layout alone:
+
+        * one process whose local slots all sit on one device: yes.  Then
+          ``broadcast`` and ``split`` hand out the tensor or views of it,
+          ``psum`` is a chain of adds and ``all_gather`` a ``torch.cat``,
+          all work on that device's stream;
+        * several processes: no.  ``psum`` and ``all_gather`` call
+          ``torch.distributed.all_reduce``; gloo's collectives cannot be
+          captured, and NCCL's, which can, refuse two ranks on one GPU;
+        * one process over several GPUs: no.  A capture records one
+          device's stream, so the shards' kernels on the other devices
+          would run during the capture instead of being recorded.
+
+        The unsharded parts of the sharded solvers (the essential graph's
+        problem and commit, the GBA commit) run on one device under any
+        mesh and are captured whatever this says."""
+        return not self.multi_process and len(set(self.local_devices)) == 1
+
     def broadcast(self, x):
         """A replicated tensor on every local shard's device (the same
         tensor where the device is the same)."""

@@ -37,10 +37,11 @@ wrapper — counts in ``replays`` only (``chip_smoke.py`` profiles replays to
 see the kernels run inside them).
 
 ``KeyframeGraphs`` is the counterpart of JAX's jitted ``_map_front``,
-``_map_tail_variants`` and ``_cull_kfs``: the keyframe programs take their
-ids as int32 [1] tensors and write the map fields they change into the
-storage inside the graph (JAX donates the map), so a replay returns only the
-local map and the keyframe's row.
+``_map_tail_variants``, ``_cull_kfs`` and the split's ``_bookkeep_d1``: the
+map-side programs take their ids as int32 [1] tensors and write the map
+fields they change into the storage inside the graph (JAX donates the map),
+so a replay returns only the local map, the keyframe's row or the frame's
+map-side stats.
 
 ``RelocGraph`` is the counterpart of JAX's ``_reloc_query_jit`` and
 ``_reloc_fused`` as one graph: the BoW query and the candidate cascade of a
@@ -260,22 +261,26 @@ def id_tensor(v, device) -> torch.Tensor:
 
 
 class KeyframeGraphs:
-    """The keyframe programs, each one ``StepGraph``: the front program, each
-    ``(do_ba, do_cull)`` variant of the tail that is asked for, and the
-    keyframe cull of an aborted BA (``SLAM._flush_pending``).
+    """The map-side programs, each one ``StepGraph``: the keyframe front
+    program, each ``(do_ba, do_cull)`` variant of the tail that is asked
+    for, the keyframe cull of an aborted BA (``SLAM._flush_pending``), and
+    the split's per-frame bookkeeping.
 
     ``front(mapstate, frame, Tcw, mp_ids, fid, kf_id)``, ``tail(mapstate,
-    kf_id, do_ba, do_cull)`` and ``cull(mapstate, kf_id)`` are the eager
-    programs (``SLAM.map_front_program``, ``map_tail_program``,
-    ``_cull_kfs``), which return a new map first.  Here the ids go in as
+    kf_id, do_ba, do_cull)``, ``cull(mapstate, kf_id)`` and
+    ``bookkeep(mapstate, local, mp_ids, visible, found, ref_kf)`` are the
+    eager programs (``SLAM.map_front_program``, ``map_tail_program``,
+    ``_cull_kfs``, ``bookkeep_program``), which return a new map first.
+    Here the ids go in as
     int32 [1] tensors and the map storage as ``fixed``; each captured
     program writes the fields it changed into the storage, inside the graph
     (JAX donates the map), and returns only its small outputs, so no replay
     clones a whole map.  ``copied_bytes`` counts the bytes written into the
     storage.  A storage of other shapes needs ``clear()`` first."""
 
-    def __init__(self, front: Callable, tail: Callable, cull: Callable, *, capture: bool = True):
-        self._front, self._tail, self._cull = front, tail, cull
+    def __init__(self, front: Callable, tail: Callable, cull: Callable, bookkeep: Callable, *,
+                 capture: bool = True):
+        self._front, self._tail, self._cull, self._bookkeep = front, tail, cull, bookkeep
         self.capture = capture
         self._steps: Dict[object, StepGraph] = {}
         self._map_ptrs: Optional[tuple] = None
@@ -328,6 +333,15 @@ class KeyframeGraphs:
         cull = self._cull
         self._run("cull_kfs", lambda m, k: (cull(m, k),), mapstate,
                   id_tensor(kf_id, mapstate.kf_Tcw.device))
+
+    def bookkeep(self, mapstate: MapState, local, mp_ids, visible, found, ref_kf):
+        """The split's map side of a frame into the storage: the tracking
+        counters bumped there.  ``local`` is the published local map and
+        ``mp_ids`` / ``visible`` / ``found`` the frame's, on the storage's
+        device.  Returns (the map-side stats [19], the frame-centred local
+        map)."""
+        return self._run("bookkeep", self._bookkeep, mapstate, local, mp_ids, visible, found,
+                         id_tensor(ref_kf, mapstate.kf_Tcw.device))
 
 
 class RelocGraph:

@@ -15,8 +15,10 @@ src/LoopClosing.cc, src/KeyFrameDB.cc):
   the matched loop points fused, the loop group fused into the current
   neighbourhood, the essential graph optimized (LoopClosing.cc:432-541).
   The global BA then runs in the background (``solvers/global_ba.py``).
-  Without a mesh the essential graph is ``EssentialGraph``: three captured
-  CUDA graphs on the card (JAX jits it as ``_essential``).
+  The essential graph is ``EssentialGraph``: three captured CUDA graphs on
+  the card (JAX jits it as ``_essential``, and over a mesh as
+  ``_essential_mesh``); over a mesh that ``Mesh.capturable`` refuses its
+  sharded GN step runs eagerly between the captured problem and commit.
 
 The module functions take keyframe ids as host ints or int [1] device
 tensors and gather with them on the device, and none writes into the map it
@@ -58,10 +60,15 @@ from ..mapstate.mapping import _row, _set_covis_row, fuse_candidates_into_keyfra
 from ..matching.matcher import BIG, best_match, mutual_filter
 from ..ops.hamming import hamming_matrix
 from ..solvers.epnp import uniform_draw
+from ..solvers import pose_graph
 from ..solvers.global_ba import global_ba
 from ..solvers.pose_graph import (
+    CG_ITERS,
+    DAMPING,
     DENSE_MAX_K,
     PoseGraphProblem,
+    _pad_edges,
+    _shard_edges,
     _take,
     gn_step,
     make_relative_measurements,
@@ -556,30 +563,50 @@ def _partial_map(names: tuple, fields: tuple) -> MapState:
     return MapState(**full)
 
 
-class EssentialGraph:
-    """``optimize_essential`` on the single-process routes (dense Cholesky
-    up to ``dense_max_k`` keyframe slots, PCG above) as three ``StepGraph``s:
-    the problem (edge collection and measurements), one GN step, replayed
-    ``ESSENTIAL_ITERS`` times, and the commit of poses and points.  One GN
-    step holds one step's buffers where the whole program would hold 20
-    steps', and captures in about a twentieth of the time.  Each part copies in only
-    the map fields it reads.  ``kf_cur`` and ``kf_cand`` go in as int32 [1]
-    device tensors (host ints are converted).  A part captures at its first
-    call on the card and raises if the capture fails; ``capture=False`` runs
-    the same static-buffer wrappers eagerly (the CPU)."""
+def _sharded_gn_step(prob: PoseGraphProblem, S: sim3.Sim3, *, mesh, shards=None) -> sim3.Sim3:
+    """One edge-sharded GN step of a problem whose edges are padded to a
+    multiple of the mesh size; without ``shards`` they are cut from ``prob``
+    (views of it on a mesh of one device)."""
+    return pose_graph._gn_step_pcg_sharded(prob, S, DAMPING, CG_ITERS, mesh,
+                                           _shard_edges(prob, mesh) if shards is None else shards)
 
-    def __init__(self, *, essential_weight: int, dense_max_k: int = DENSE_MAX_K, capture: bool = True):
+
+class EssentialGraph:
+    """``optimize_essential`` as three ``StepGraph``s: the problem (edge
+    collection and measurements), one GN step, replayed ``ESSENTIAL_ITERS``
+    times, and the commit of poses and points.  Without a ``mesh`` the step
+    is the single-process one (dense Cholesky up to ``dense_max_k`` keyframe
+    slots, PCG above); with one, the problem pads its edges to a multiple of
+    the mesh size and the step is the edge-sharded PCG (``optimize_pose_graph``
+    over the mesh, JAX's ``_essential_mesh``), its edge shards cut inside
+    the step as views of its input.  Over a mesh that is not
+    ``capturable`` the sharded step runs eagerly between the two replayed
+    parts, on shards cut once a call.  One GN step holds one step's buffers
+    where the whole program would hold 20 steps', and captures in about a
+    twentieth of the time.  Each part copies in only the map fields it
+    reads.  ``kf_cur`` and ``kf_cand`` go in as int32 [1] device tensors
+    (host ints are converted).  A part captures at its first call on the
+    card and raises if the capture fails; ``capture=False`` runs the same
+    static-buffer wrappers eagerly (the CPU)."""
+
+    def __init__(self, *, essential_weight: int, dense_max_k: int = DENSE_MAX_K, mesh=None,
+                 capture: bool = True):
+        self.mesh = mesh
+
         def problem(fields, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn):
-            return essential_problem(_partial_map(_PROBLEM_FIELDS, fields), kf_cur, kf_cand, S12, S_nc,
+            prob = essential_problem(_partial_map(_PROBLEM_FIELDS, fields), kf_cur, kf_cand, S12, S_nc,
                                      group_mask, pre_conn, essential_weight=essential_weight)
+            return prob if mesh is None else _pad_edges(prob, mesh.size)
 
         def commit(fields, S_now, S_opt):
             out = commit_essential(_partial_map(_COMMIT_FIELDS, fields), S_now, S_opt)
             return out.kf_Tcw, out.mp_pos
 
+        step = (partial(gn_step, dense_max_k=dense_max_k) if mesh is None
+                else partial(_sharded_gn_step, mesh=mesh))
         self.parts = (
             StepGraph(problem, capture=capture),
-            StepGraph(partial(gn_step, dense_max_k=dense_max_k), capture=capture),
+            StepGraph(step, capture=capture),
             StepGraph(commit, capture=capture),
         )
 
@@ -598,6 +625,8 @@ class EssentialGraph:
         prob = problem(_fields_of(state, _PROBLEM_FIELDS), id_tensor(kf_cur, dev), id_tensor(kf_cand, dev),
                        S12, S_nc, group_mask, pre_conn)
         S = prob.S_cw
+        if self.mesh is not None and not self.mesh.capturable:
+            step = partial(_sharded_gn_step, mesh=self.mesh, shards=_shard_edges(prob, self.mesh))
         for _ in range(ESSENTIAL_ITERS):
             S = step(prob, S)
         kf_Tcw, mp_pos = commit(_fields_of(state, _COMMIT_FIELDS), prob.S_cw, S)
@@ -849,8 +878,9 @@ class LoopCloser:
         self.graph_span = _no_span
         self.graphs: Optional[LoopGraphs] = None
         self._dropped_bytes = 0   # what dropped loop graphs wrote into the map storage
-        # the single-process essential graph, built at its first use (on the
-        # card, captured by ``warmup``) and dropped when the capacity grows
+        # the essential graph of the last mesh asked for (None: unsharded),
+        # built at its first use (on the card, captured by ``warmup``) and
+        # dropped when the capacity grows
         self.essential: Optional[EssentialGraph] = None
         o, c = cfg.orb, cfg.camera
         self._geom = dict(width=c.width, height=c.height, scale_factor=o.scale_factor, n_levels=o.n_levels)
@@ -1091,28 +1121,28 @@ class LoopCloser:
         self.add_and_detect(state, 0)
         self.warm_essential(state, mesh)
 
-    def _essential_graph(self, device: torch.device) -> EssentialGraph:
-        if self.essential is None:
+    def _essential_graph(self, device: torch.device, mesh=None) -> EssentialGraph:
+        if self.essential is None or self.essential.mesh != mesh:
+            if mesh is not None and mesh.axis != self.cfg.dist.mesh_axis:
+                raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {self.cfg.dist.mesh_axis!r}")
             self.essential = EssentialGraph(essential_weight=self.cfg.loop.essential_graph_weight,
-                                            capture=device.type == "cuda")
+                                            mesh=mesh, capture=device.type == "cuda")
         return self.essential
 
     def warm_essential(self, state: MapState, mesh=None) -> None:
-        """Run the essential graph once on ``state`` (keyframe 0 against
-        itself, nothing moved) and discard the result: on the card the
-        graphs of ``state``'s capacity are captured here, not at the next
-        closure.  With a ``mesh`` the sharded route runs once eagerly."""
+        """Run the essential graph (over ``mesh`` when given) once on
+        ``state`` (keyframe 0 against itself, nothing moved) and discard the
+        result: on the card the graphs of ``state``'s capacity are captured
+        here, not at the next closure."""
         K, dev = state.kf_capacity, state.kf_Tcw.device
         zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-        args = (state, zero, zero, sim3.identity(device=dev), sim3.from_se3(state.kf_Tcw),
-                torch.zeros((K,), dtype=torch.bool, device=dev), state.covis > 0)
-        if mesh is None:
-            self._essential_graph(dev)(*args)
-        else:
-            self._essential_mesh(*args, mesh=mesh)
+        self._essential_graph(dev, mesh)(state, zero, zero, sim3.identity(device=dev),
+                                         sim3.from_se3(state.kf_Tcw),
+                                         torch.zeros((K,), dtype=torch.bool, device=dev), state.covis > 0)
 
     def _essential_mesh(self, state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn, *, mesh) -> MapState:
-        """The essential graph by the edge-sharded PCG over ``mesh``, eagerly."""
+        """The essential graph by the edge-sharded PCG over ``mesh``, eagerly:
+        the reference the mesh route of ``EssentialGraph`` is held to."""
         return optimize_essential(
             state, kf_cur, kf_cand, S12, S_nc, group_mask, pre_conn,
             essential_weight=self.cfg.loop.essential_graph_weight,
@@ -1142,9 +1172,9 @@ class LoopCloser:
         synchronous global BA when ``run_gba``.  The front and the fuses run
         through the loop graphs and write into ``state`` itself with
         ``in_place`` (the system's map storage), else into a copy of it.
-        Without a ``mesh`` the essential graph runs as ``EssentialGraph``
-        (captured on the card); with one it takes the edge-sharded PCG
-        eagerly and the global BA the sharded solve."""
+        The essential graph runs as ``EssentialGraph`` (captured on the
+        card), over ``mesh`` when given; the global BA then takes the
+        sharded solve."""
         mw = self.cfg.mapping.min_covis_weight
         g = self.loop_graphs()
         if not in_place:
@@ -1160,11 +1190,8 @@ class LoopCloser:
                 g.fuse_one(state, cam, kf, group)
         with self.span("optimize_essential"):
             dev = state.kf_Tcw.device
-            args = (state, id_tensor(kf_cur, dev), id_tensor(kf_cand, dev), S12, S_nc, group_mask, pre_conn)
-            if mesh is None:
-                state = self._essential_graph(dev)(*args)
-            else:
-                state = self._essential_mesh(*args, mesh=mesh)
+            state = self._essential_graph(dev, mesh)(state, id_tensor(kf_cur, dev), id_tensor(kf_cand, dev),
+                                                     S12, S_nc, group_mask, pre_conn)
         if run_gba:
             state = global_ba(state, cam, scale_factor=self.cfg.orb.scale_factor,
                               phase_iters=tuple(self.cfg.loop.global_ba_phase_iters),

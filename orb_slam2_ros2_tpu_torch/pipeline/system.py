@@ -33,8 +33,9 @@ detection through the consistency chains, or run one chunk of the background
 global BA; a verified loop is corrected at once (group propagation, fuses,
 essential graph), the GBA snapshot taken, and its commit re-anchors the
 tracker.  The dispatch and the GBA chunks read nothing back; the resolve, the
-stage gates, the correction and the commit do.  Without a mesh the GBA chunk
-and commit run as ``global_ba.GBAGraphs`` (captured CUDA graphs on the card).
+stage gates, the correction and the commit do.  The GBA chunk and commit run
+as ``global_ba.GBAGraphs`` (captured CUDA graphs on the card): the commit
+under any mesh, the chunk unsharded or over a ``capturable`` mesh.
 
 Relocalization (a LOST frame, or the first frame on a loaded map) queries the
 keyframe database — BoW candidates → descriptor match → EPnP RANSAC →
@@ -55,7 +56,11 @@ and the local map), and the map device owns the map and runs the per-frame
 bookkeeping, the keyframe programs, loop closing and the GBA (the
 reference's tracking / mapping thread split, System.cc:119-129, as a device
 split).  The view is refreshed after each mapping event; the split turns
-the pipelined loop off.
+the pipelined loop off.  On the card a mesh of one process whose slots share
+one device (``Mesh.capturable``) replays the sharded GBA chunk and the
+essential graph's sharded GN step as CUDA graphs; over a mesh of several
+processes or devices they run eagerly between captured unsharded parts.
+The split's bookkeeping replays a graph on a CUDA map device.
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ from ..mapstate.mapping import (
 from ..matching import matcher
 from ..ops.hamming import hamming_matrix
 from ..solvers.epnp import N_HYP, ransac_pnp, uniform_draw
-from ..solvers.global_ba import GBAGraphs, commit_global_ba, global_ba, start_global_ba, step_global_ba
+from ..solvers.global_ba import GBAGraphs, global_ba, start_global_ba
 from ..solvers.local_ba import local_ba
 from ..solvers.pose_opt import PoseObs, optimize_pose
 from ..utils import count_into, mask_from_ids, mask_from_ids_rows, set_drop, set_drop_rows
@@ -607,14 +612,15 @@ class SLAM:
                               if on_card and not self._split else None)
         self._track_graphs = (FrameGraphs(lambda *a, **kw: this().track_program(*a, **kw))
                               if on_card and self._split else None)
-        # the keyframe programs, captured on a CUDA map device (eager
-        # elsewhere: the same static buffers and writes into the storage)
+        # the keyframe programs and the split's bookkeeping, captured on a
+        # CUDA map device (eager elsewhere: the same static buffers and
+        # writes into the storage)
         on_map_card = self.map_device.type == "cuda"
         self._kf_graphs = KeyframeGraphs(
             lambda *a: this().map_front_program(*a), lambda *a: this().map_tail_program(*a),
-            lambda *a: this()._cull_kfs(*a), capture=on_map_card)
-        # the unsharded GBA chunk and commit, and the relocalization query
-        # and cascade, likewise (the mesh route of the GBA stays eager)
+            lambda *a: this()._cull_kfs(*a), lambda *a: this().bookkeep_program(*a), capture=on_map_card)
+        # the GBA chunk (over a mesh that Mesh.capturable admits) and commit,
+        # and the relocalization query and cascade, likewise
         self._gba_graphs = GBAGraphs(n_iters=1, pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono,
                                      chi2_stereo=b.chi2_stereo, capture=on_map_card)
         self._reloc_graph = RelocGraph(lambda *a: this().reloc_program(*a), capture=on_map_card)
@@ -968,9 +974,9 @@ class SLAM:
             new_state, velocity, hv0, visible, found = self._timed(
                 "track", track, img_l, img_r, last, velocity, local, self._view, 0, proj_th=proj_th)
         with self._keyframe_program("bookkeep"):
-            self.map, hv1, local_map = self._timed(
-                "bookkeep", self.bookkeep_program, self.map, self._local_map,
-                *self._to_map((new_state.mp_ids, visible, found)), kf_index(self.ref_kf, self.map_device))
+            hv1, local_map = self._timed(
+                "bookkeep", self._kf_graphs.bookkeep, self.map, self._local_map,
+                *self._to_map((new_state.mp_ids, visible, found)), self.ref_kf)
         return new_state, velocity, _join_stats(hv0, self._to_tracker(hv1)), local_map
 
     def track(self, img_left, img_right) -> Tuple[Optional[np.ndarray], dict]:
@@ -1469,8 +1475,8 @@ class SLAM:
                 self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
             if self.loop_closer is not None:
                 self.loop_closer.grow(kf_capacity)
-                if self.map_device.type == "cuda" and self.mesh is None:
-                    self.loop_closer.warm_essential(self.map)
+                if self.map_device.type == "cuda":
+                    self.loop_closer.warm_essential(self.map, self.mesh)
         if self.map_device.type == "cuda":
             if self.loop_closer is not None and self.enable_loop_closing:
                 self.loop_closer.warm_graphs(self.map, self.map_cam)
@@ -1584,11 +1590,7 @@ class SLAM:
         pend = start_global_ba(self.map, self.cfg.orb.scale_factor)
         for done in (0, phase1):   # the ungated and the gated chunk
             self._gba_chunk(pend._replace(chunks_done=done))
-        if self.mesh is None:
-            self._gba_graphs.commit(self.map, pend._replace(snap_next_kf=0, snap_next_mp=0),
-                                    propagate_depth=4)
-        else:
-            commit_global_ba(self.map, pend)
+        self._gba_graphs.commit(self.map, pend._replace(snap_next_kf=0, snap_next_mp=0), propagate_depth=4)
         self._warm_reloc()
 
     def _add_kf_to_db(self, kf_id: int) -> None:
@@ -1696,16 +1698,11 @@ class SLAM:
         return True
 
     def _gba_chunk(self, pending):
-        """One chunk of ``pending``: through the graphs without a mesh, the
-        sharded eager chunk with one."""
-        b = self.cfg.ba
-        phase1 = self.cfg.loop.global_ba_phase_iters[0]
-        if self.mesh is None:
-            return self._gba_graphs.step(pending, self.map_cam, robust_after=phase1,
-                                         capacity=(self.map.kf_capacity, self.map.mp_capacity))
-        return step_global_ba(pending, self.map_cam, n_iters=1, pcg_iters=b.pcg_iters,
-                              chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo, robust_after=phase1,
-                              mesh=self.mesh, axis=self.cfg.dist.mesh_axis)
+        """One chunk of ``pending`` through ``GBAGraphs.step`` over the
+        SLAM's mesh (which runs it eagerly over a mesh that is not
+        capturable)."""
+        return self._gba_graphs.step(pending, self.map_cam, robust_after=self.cfg.loop.global_ba_phase_iters[0],
+                                     capacity=(self.map.kf_capacity, self.map.mp_capacity), mesh=self.mesh)
 
     def _step_pending_gba(self) -> None:
         """One background-GBA chunk; the commit after the last one."""
@@ -1719,10 +1716,7 @@ class SLAM:
         and re-anchor the tracker on it."""
         ref_before = self.map.kf_Tcw[self.ref_kf].clone()
         with self._loop_stage("gba_commit"):
-            if self.mesh is None:
-                self._gba_graphs.commit(self.map, self._pending_gba)
-            else:
-                self.map = commit_global_ba(self.map, self._pending_gba)
+            self._gba_graphs.commit(self.map, self._pending_gba)
         self._pending_gba = None
         self._publish_local(self._snapshot(self.map, self.ref_kf), refresh_view=True)
         self._reanchor_tracker(ref_before)

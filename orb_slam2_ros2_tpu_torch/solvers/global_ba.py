@@ -21,8 +21,12 @@ background solve pads and splits its snapshot once, on its first chunk,
 and keeps the shards in ``PendingGBA.shards`` (JAX caches the sharded chunk
 program instead).
 
-``GBAGraphs`` runs the unsharded chunk and the commit as captured CUDA
-graphs, the counterparts of JAX's jitted ``_step_jit`` and ``_commit_jit``.
+``GBAGraphs`` runs the chunk and the commit as captured CUDA graphs, the
+counterparts of JAX's jitted ``_step_jit`` / ``_sharded_step_jit`` and
+``_commit_jit``: the chunk unsharded or over a mesh that
+``Mesh.capturable`` admits (one process, every local slot on one device),
+the commit under any mesh (it is not sharded).  Over any other mesh
+``GBAGraphs.step`` runs the chunk as ``step_global_ba``, eagerly.
 """
 
 from __future__ import annotations
@@ -296,27 +300,33 @@ def _pow2(n: int) -> int:
 
 
 class _Bucket(NamedTuple):
-    key: tuple                 # (K, M, N, O, device): the padded shapes
+    key: tuple                 # (K, M, N, O, device, mesh): the padded shapes and the mesh
     prob: GlobalBAProblem      # the static problem the graph reads
+    shards: Optional[list]     # with a mesh: its shards, views of ``prob``
     step: StepGraph
     source: GlobalBAProblem    # the snapshot copied into ``prob`` last
 
 
 class GBAGraphs:
-    """The unsharded background GBA as CUDA graphs: the chunk
-    (``global_ba_phase`` of ``n_iters`` GN steps) and the commit
-    (``_commit_impl``), each a ``StepGraph`` (``capture=False`` runs the same
-    static-buffer wrappers eagerly: the CPU).
+    """The background GBA as CUDA graphs: the chunk (``global_ba_phase`` of
+    ``n_iters`` GN steps, unsharded or over a capturable mesh) and the
+    commit (``_commit_impl``), each a ``StepGraph`` (``capture=False`` runs
+    the same static-buffer wrappers eagerly: the CPU).
 
     The chunk's graph is keyed on a bucket of the snapshot's shapes — its
     watermarks rounded up to powers of two within the map's capacities, and
-    the camera-major feature capacity to a power of two ≥ 8 — so the
-    snapshots of later closures reuse it; the snapshot is padded to the
-    bucket (padded cameras fixed at the identity, padded points and edges
-    invalid) and copied into the bucket's static problem once, at its first
-    chunk.  A chunk then copies in only the iterate, the gate as a bool [1]
-    (``robust_gate``: one graph serves the ungated and the gated chunks)
-    and the camera.  Only the newest bucket's graph is kept.
+    the camera-major feature capacity to a power of two ≥ 8 — and on the
+    mesh, so the snapshots of later closures reuse it; the snapshot is
+    padded to the bucket (padded cameras fixed at the identity, padded
+    points and edges invalid) and copied into the bucket's static problem
+    once, at its first chunk.  A chunk then copies in only the iterate, the
+    gate as a bool [1] (``robust_gate``: one graph serves the ungated and
+    the gated chunks) and the camera.  Over a mesh the bucket's cameras
+    and points are further rounded up to multiples of its size, and the
+    static problem is sharded once into views of itself (``_shard_global``
+    with ``views``), which the graph reads at their addresses; the point
+    iterate is split inside the graph and gathered there.  Only the newest
+    bucket's graph is kept.
 
     The commit takes the watermarks and the propagation depth as int32 [1]
     tensors and runs the depth rounded up to a power of two rounds, those
@@ -336,7 +346,13 @@ class GBAGraphs:
         self._nbytes: dict = {}      # rounds -> bytes a commit writes into the storage
         self.copied_bytes = 0
         self.snapshot_loads = 0      # snapshots copied into a bucket's statics
-        self.capture_log: list = []  # ("chunk", (K, M, N, O)) / ("commit", rounds) of each graph
+        # ("chunk", (K, M, N, O), shards) / ("commit", rounds) of each graph
+        self.capture_log: list = []
+        # replays (calls of the static-buffer wrappers with capture=False)
+        # since construction, dropped graphs' included
+        self.chunk_replays = 0
+        self.commit_replays = 0
+        self.eager_chunks = 0        # chunks over a mesh that is not capturable
 
     @property
     def captures(self) -> int:
@@ -344,8 +360,7 @@ class GBAGraphs:
 
     @property
     def replays(self) -> int:
-        steps = list(self._commits.values()) + ([self._bucket.step] if self._bucket else [])
-        return sum(s.replays for s in steps)
+        return self.chunk_replays + self.commit_replays
 
     def clear(self) -> None:
         """Drop every graph (the map storage was re-allocated)."""
@@ -363,42 +378,61 @@ class GBAGraphs:
         return (min(_pow2(K0), max(K0, capacity[0])), min(_pow2(M0), max(M0, capacity[1])),
                 max(8, _pow2(N0)))
 
-    def _chunk_program(self):
+    def _chunk_program(self, mesh):
         solver = self.solver
-
-        def chunk(Tcw, ptsT, gate, cam, prob):
-            return global_ba_phase(cam, prob, Tcw, ptsT, robust_gate=gate, **solver)
+        if mesh is None:
+            def chunk(Tcw, ptsT, gate, cam, prob):
+                return global_ba_phase(cam, prob, Tcw, ptsT, robust_gate=gate, **solver)
+        else:
+            def chunk(Tcw, ptsT, gate, cam, shards):
+                Tcw, ptsT = global_ba_phase(cam, shards, Tcw, mesh.split(ptsT), robust_gate=gate,
+                                            axis=mesh, **solver)
+                return Tcw, mesh.all_gather(ptsT)
 
         return chunk
 
     def step(self, pending: PendingGBA, cam: CameraParams, *, robust_after: int,
-             capacity: tuple) -> PendingGBA:
-        """``step_global_ba`` without a mesh, through the bucket's graph;
+             capacity: tuple, mesh=None) -> PendingGBA:
+        """``step_global_ba`` through the bucket's graph, unsharded or over
+        a ``capturable`` ``mesh`` (the graph then runs on the mesh's
+        device); over any other mesh ``step_global_ba`` itself, eagerly.
         ``capacity`` is the live map's (kf_capacity, mp_capacity)."""
+        if mesh is not None and not mesh.capturable:
+            self.eager_chunks += 1
+            return step_global_ba(pending, cam, robust_after=robust_after, mesh=mesh, axis=mesh.axis,
+                                  **self.solver)
         K0, M0 = pending.Tcw.shape[0], pending.ptsT.shape[1]
         K, M, N = self.bucket(pending, capacity)
-        key = (K, M, N, pending.prob.pm_cam.shape[0], pending.Tcw.device)
+        dev = pending.Tcw.device if mesh is None else mesh.device
+        if mesh is not None:
+            K, M = K + (-K) % mesh.size, M + (-M) % mesh.size
+        key = (K, M, N, pending.prob.pm_cam.shape[0], dev, mesh)
         b = self._bucket
         if b is None or b.key != key:
             self._bucket = None   # the old bucket's graph goes first
-            prob = GlobalBAProblem(*(t.clone() for t in pad_global_to(pending.prob, K, M, N)))
-            b = self._bucket = _Bucket(key, prob, StepGraph(self._chunk_program(), capture=self.capture),
-                                       pending.prob)
+            prob = GlobalBAProblem(*(t.to(dev, copy=True) for t in pad_global_to(pending.prob, K, M, N)))
+            shards = None if mesh is None else _shard_global(prob, mesh, views=True)
+            b = self._bucket = _Bucket(key, prob, shards,
+                                       StepGraph(self._chunk_program(mesh), capture=self.capture), pending.prob)
             self.snapshot_loads += 1
         elif b.source is not pending.prob:
             # a new snapshot of this bucket: into the statics, at their addresses
             torch._foreach_copy_(tree_leaves(b.prob), tree_leaves(pad_global_to(pending.prob, K, M, N)))
             b = self._bucket = b._replace(source=pending.prob)
             self.snapshot_loads += 1
-        dev = pending.Tcw.device
-        Tcw = torch.cat([pending.Tcw, torch.eye(4, dtype=pending.Tcw.dtype, device=dev).expand(K - K0, 4, 4)])
-        ptsT = torch.cat([pending.ptsT, pending.ptsT.new_zeros((3, M - M0))], dim=1)
+        Tcw = torch.cat([pending.Tcw, torch.eye(4, dtype=pending.Tcw.dtype, device=pending.Tcw.device)
+                         .expand(K - K0, 4, 4)]).to(dev)
+        ptsT = torch.cat([pending.ptsT, pending.ptsT.new_zeros((3, M - M0))], dim=1).to(dev)
         gate = torch.full((1,), pending.chunks_done >= robust_after, dtype=torch.bool, device=dev)
-        captures = b.step.captures
-        Tcw, ptsT = b.step(Tcw, ptsT, gate, cam, fixed=(b.prob,))
+        captures, replays = b.step.captures, b.step.replays
+        Tcw, ptsT = b.step(Tcw, ptsT, gate, CameraParams(*(t.to(dev) for t in cam)),
+                           fixed=(b.prob if mesh is None else b.shards,))
         if b.step.captures > captures:
-            self.capture_log.append(("chunk", key[:4]))
-        return pending._replace(Tcw=Tcw[:K0], ptsT=ptsT[:, :M0], chunks_done=pending.chunks_done + 1)
+            self.capture_log.append(("chunk", key[:4], 1 if mesh is None else mesh.size))
+        self.chunk_replays += b.step.replays - replays
+        out = pending.Tcw.device
+        return pending._replace(Tcw=Tcw[:K0].to(out), ptsT=ptsT[:, :M0].to(out),
+                                chunks_done=pending.chunks_done + 1)
 
     def commit(self, storage: MapState, pending: PendingGBA, *,
                propagate_depth: Optional[int] = None) -> None:
@@ -420,9 +454,10 @@ class GBAGraphs:
 
             step = self._commits[rounds] = StepGraph(donated, capture=self.capture)
         dev = storage.kf_Tcw.device
-        captures = step.captures
+        captures, replays = step.captures, step.replays
         step(*_commit_inputs(storage, pending), id_tensor(pending.snap_next_kf, dev),
              id_tensor(pending.snap_next_mp, dev), id_tensor(propagate_depth, dev), fixed=(storage,))
         if step.captures > captures:
             self.capture_log.append(("commit", rounds))
+        self.commit_replays += step.replays - replays
         self.copied_bytes += self._nbytes[rounds]

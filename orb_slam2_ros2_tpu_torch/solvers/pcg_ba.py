@@ -345,19 +345,20 @@ def global_ba_phase(
     the chunk of the background global BA.  ``robust_gate=False`` is the
     ungated first phase of ``solve_global_ba``; otherwise observations are
     gated by the χ² of the entry iterate.  A bool [1] tensor
-    ``robust_gate`` (unsharded only) selects between the two on the
-    device, the gates always computed: one program, and one CUDA graph,
-    for every chunk of a solve (JAX compiles one per value).  With a mesh
+    ``robust_gate`` selects between the two on the device, the gates
+    always computed: one program, and one CUDA graph, for every chunk of a
+    solve (JAX compiles one per value).  With a mesh
     ``axis``, ``prob`` and ``ptsT`` are the lists of its local shards
     (``_shard_global``) and so is the returned ``ptsT``; ``Tcw`` is
     replicated."""
     pm_th, cm_th = _shard_thresholds(prob, chi2_mono, chi2_stereo, axis)
     if torch.is_tensor(robust_gate):
-        if axis is not None:
-            raise ValueError("a tensor robust_gate needs the unsharded problem")
-        pm_g, cm_g = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th)
-        pm_gate = torch.where(robust_gate, pm_g, prob.pm_valid)
-        cm_gate = torch.where(robust_gate, cm_g, prob.cm_valid)
+        mesh, (probs, pm_gs, cm_gs) = _shards(axis, prob, *_gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis))
+        picks = mesh.broadcast(robust_gate)
+        pm_gate = [torch.where(g, a, p.pm_valid) for g, a, p in zip(picks, pm_gs, probs)]
+        cm_gate = [torch.where(g, a, p.cm_valid) for g, a, p in zip(picks, cm_gs, probs)]
+        if axis is None:
+            pm_gate, cm_gate = pm_gate[0], cm_gate[0]
     elif robust_gate:
         pm_gate, cm_gate = _gates(cam, prob, Tcw, ptsT, pm_th, cm_th, axis)
     elif axis is None:
@@ -469,11 +470,15 @@ def pad_global_to(prob: GlobalBAProblem, K: int, M: int, N: Optional[int] = None
     )
 
 
-def _shard_global(prob: GlobalBAProblem, mesh) -> list:
+def _shard_global(prob: GlobalBAProblem, mesh, views: bool = False) -> list:
     """This process's shards of a padded problem, each on its slot's device
     (JAX's in_specs): the camera arrays replicated, the point arrays and
     point-major planes cut along the points, the camera-major planes along
-    the cameras."""
+    the cameras.  Each cut is a contiguous copy, or with ``views`` (a mesh
+    on ``prob``'s one device) a view of ``prob``: a captured chunk reads its
+    static problem through them, so a snapshot copied into it reaches the
+    graph."""
+    own = (lambda a: a) if views else (lambda a: a.contiguous())
     out = []
     pts = mesh.split(prob.pt_pos, 0)
     pm = [mesh.split(a) for a in (prob.pt_valid, prob.pm_cam, prob.pm_uv, prob.pm_right_u,
@@ -481,8 +486,8 @@ def _shard_global(prob: GlobalBAProblem, mesh) -> list:
     cm = [mesh.split(a) for a in (prob.cm_pt, prob.cm_uv, prob.cm_right_u, prob.cm_inv_sigma2,
                                   prob.cm_valid)]
     for i, dev in enumerate(mesh.local_devices):
-        out.append(GlobalBAProblem(prob.cam_Tcw.to(dev), prob.cam_free.to(dev), pts[i].contiguous(),
-                                   *(a[i].contiguous() for a in pm), *(a[i].contiguous() for a in cm)))
+        out.append(GlobalBAProblem(prob.cam_Tcw.to(dev), prob.cam_free.to(dev), own(pts[i]),
+                                   *(own(a[i]) for a in pm), *(own(a[i]) for a in cm)))
     return out
 
 

@@ -36,6 +36,8 @@ import torch
 from ..geometry import sim3
 
 DENSE_MAX_K = 256
+# the GN damping and the CG iterations of a solve (JAX optimize_pose_graph)
+DAMPING, CG_ITERS = 1e-6, 150
 
 
 class PoseGraphProblem(NamedTuple):
@@ -269,7 +271,7 @@ def _gn_step_pcg_sharded(prob: PoseGraphProblem, S: sim3.Sim3, damping: float, c
     return _finish_step(prob, S, dx)
 
 
-def gn_step(prob: PoseGraphProblem, S: sim3.Sim3, *, damping: float = 1e-6, cg_iters: int = 150,
+def gn_step(prob: PoseGraphProblem, S: sim3.Sim3, *, damping: float = DAMPING, cg_iters: int = CG_ITERS,
             dense_max_k: int = DENSE_MAX_K) -> sim3.Sim3:
     """One single-process GN step: dense Cholesky up to ``dense_max_k``
     vertices, matrix-free PCG above."""
@@ -282,8 +284,8 @@ def optimize_pose_graph(
     prob: PoseGraphProblem,
     *,
     iters: int = 20,
-    damping: float = 1e-6,
-    cg_iters: int = 150,
+    damping: float = DAMPING,
+    cg_iters: int = CG_ITERS,
     dense_max_k: int = DENSE_MAX_K,
     mesh=None,
     mesh_axis: str = "ba",

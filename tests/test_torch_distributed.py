@@ -4,11 +4,15 @@
   slots ``["cpu"] * 2``), the counterpart of
   ``tests/test_distributed_e2e.py`` (``slow`` in JAX) reached the cheap way:
   the revisit world of ``test_torch_loop_slice.py`` walked from detection to
-  the committed GBA.  The essential graph and every background-GBA chunk
-  receive the SLAM's mesh (without it every chunk runs through
-  ``global_ba.GBAGraphs``), and the committed map matches the same walk
-  without a mesh within the loop slice's tolerances (keyframes 1e-3 m /
-  5e-3°, points 5e-3 m): the unsharded system solves the 16-keyframe
+  the committed GBA.  The two CPU slots are one process on one device, a
+  mesh that ``Mesh.capturable`` admits, so the work rides the graph
+  wrappers (run eagerly here, ``capture=False``; on the card they replay):
+  the essential graph's 20 sharded GN steps run through its step part
+  and every background-GBA chunk through ``global_ba.GBAGraphs`` with the
+  SLAM's mesh, none eagerly outside them, and the commit through the GBA
+  commit graph, as without a mesh.  The committed map matches the same
+  walk without a mesh within the loop slice's tolerances (keyframes 1e-3 m
+  / 5e-3°, points 5e-3 m): the unsharded system solves the 16-keyframe
   essential graph by the dense Cholesky, the sharded one by the PCG.
 * A ``SLAM`` with ``n_devices=2`` maps a synthetic sequence.
 * ``entry.dryrun_multichip(2)`` over two CPU slots.
@@ -51,16 +55,18 @@ def walk(ts):
 
 def test_gba_through_the_system_rides_the_mesh(monkeypatch):
     """The port's half of the loop slice's walk, once with ``n_devices=2``
-    (every sharded call spied) and once without."""
+    (every sharded call and every graph wrapper spied) and once without."""
     _, plain = setup_slams()
     _, sharded = setup_slams()
     cfg = sharded.cfg.replace(dist=dataclasses.replace(sharded.cfg.dist, n_devices=2))
     probe = tsys.SLAM(cfg, device="cpu", devices=MESH_SLOTS)
     assert probe.mesh is not None and probe.mesh.size == 2 and probe.mesh.local_devices == [torch.device("cpu")] * 2
+    assert probe.mesh.capturable
     sharded.cfg, sharded.mesh = cfg, probe.mesh
+    n_chunks = sum(cfg.loop.global_ba_phase_iters)
 
-    chunks, graphs = [], []
-    step = tsys.step_global_ba
+    chunks, graphs, phases, graph_chunks, commits = [], [], [], [], []
+    step = tgba.step_global_ba
 
     def spy_step(pending, cam, **kw):
         chunks.append(kw.get("mesh"))
@@ -72,23 +78,45 @@ def test_gba_through_the_system_rides_the_mesh(monkeypatch):
         graphs.append(mesh)
         return sharded_pcg(prob, S, damping, cg_iters, mesh, shards)
 
-    monkeypatch.setattr(tsys, "step_global_ba", spy_step)
-    monkeypatch.setattr(tpg, "_gn_step_pcg_sharded", spy_pcg)
-    walk(sharded)
-    assert len(chunks) == sum(cfg.loop.global_ba_phase_iters) and all(m is sharded.mesh for m in chunks)
-    assert len(graphs) == 20 and all(m is sharded.mesh for m in graphs)
-    chunks.clear()
-    graph_chunks = []
-    graph_step = tgba.GBAGraphs.step
+    phase = tgba.global_ba_phase
+
+    def spy_phase(*a, axis=None, **kw):
+        phases.append(axis)
+        return phase(*a, axis=axis, **kw)
+
+    graph_step, graph_commit = tgba.GBAGraphs.step, tgba.GBAGraphs.commit
 
     def spy_graph_step(graphs_, pending, cam, **kw):
-        graph_chunks.append(pending.chunks_done)
+        graph_chunks.append((pending.chunks_done, kw.get("mesh")))
         return graph_step(graphs_, pending, cam, **kw)
 
+    def spy_graph_commit(graphs_, *a, **kw):
+        commits.append(graphs_)
+        return graph_commit(graphs_, *a, **kw)
+
+    monkeypatch.setattr(tgba, "step_global_ba", spy_step)
+    monkeypatch.setattr(tpg, "_gn_step_pcg_sharded", spy_pcg)
+    monkeypatch.setattr(tgba, "global_ba_phase", spy_phase)
     monkeypatch.setattr(tgba.GBAGraphs, "step", spy_graph_step)
+    monkeypatch.setattr(tgba.GBAGraphs, "commit", spy_graph_commit)
+    ess_replays = sharded.loop_closer.essential.parts[1].replays if sharded.loop_closer.essential else 0
+    chunk_replays = sharded._gba_graphs.chunk_replays
+    walk(sharded)
+    # the sharded work, each call of it inside a graph wrapper: 20 GN steps
+    # through the essential graph's step part, every chunk through the GBA
+    # graphs over the SLAM's mesh, no chunk eagerly outside them
+    ess = sharded.loop_closer.essential
+    assert ess.mesh is sharded.mesh and ess.parts[1].replays - ess_replays == 20
+    assert len(graphs) == 20 and all(m is sharded.mesh for m in graphs)
+    assert not chunks and graph_chunks == [(k, sharded.mesh) for k in range(n_chunks)]
+    assert sharded._gba_graphs.chunk_replays - chunk_replays == n_chunks
+    assert len(phases) == n_chunks and all(m is sharded.mesh for m in phases)
+    assert commits == [sharded._gba_graphs]
+    graph_chunks.clear()
     walk(plain)
-    # without a mesh every chunk runs through the GBA graphs, none eagerly
-    assert not chunks and graph_chunks == list(range(sum(cfg.loop.global_ba_phase_iters)))
+    # without a mesh every chunk runs through the GBA graphs unsharded, none eagerly
+    assert not chunks and graph_chunks == [(k, None) for k in range(n_chunks)]
+    assert plain.loop_closer.essential.mesh is None
     assert_maps_agree(plain.map, sharded.map, point_m=POINT_M, pose_m=POSE_M, pose_deg=POSE_DEG)
     np.testing.assert_allclose(sharded.last.Tcw.numpy(), plain.last.Tcw.numpy(), atol=POSE_M)
 

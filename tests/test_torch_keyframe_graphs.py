@@ -47,7 +47,8 @@ def t32(v) -> torch.Tensor:
 
 
 def graphs(slam, capture=False) -> KeyframeGraphs:
-    return KeyframeGraphs(slam.map_front_program, slam.map_tail_program, slam._cull_kfs, capture=capture)
+    return KeyframeGraphs(slam.map_front_program, slam.map_tail_program, slam._cull_kfs, slam.bookkeep_program,
+                          capture=capture)
 
 
 def clone_map(m) -> MapState:
