@@ -281,13 +281,31 @@ Phases (one line each; any failure raises and exits non-zero):
      commit graph against ``commit_global_ba``.  Printed: replay and eager
      spans, each graph's first call (eager run + capture), the memory it
      holds, and (d) the eager sharded steps and chunks.
+ 20. the measurement tools (``orb_slam2_ros2_tpu_torch/tools``): every
+     tool's ``main`` in this process on the card with ``TOOL_ARGS`` (the
+     JAX scripts' depths; ``bench_posegraph`` once at its sizes and once at
+     K=64), one tool's graphs dropped and the cache emptied before the
+     next.  Gates (``check_tool``): every tool returns its keys and every
+     time in them is finite and positive; ``profile_frame``'s full step no
+     faster than its frontend; K1 and K2 once a replay in ``profile_trace``'s
+     trace; ``bench_posegraph``'s 20 ``gn_step`` replays bit-equal to the
+     eager ``optimize_pose_graph`` on every route and size, every solve's
+     cost under a tenth of its start, the dense route's cost no higher than
+     PCG's, and the two routes' poses within 2e-3 at K=64 (past K ≈ 100 the
+     150 CG iterations a step stop short of the dense optimum); every
+     ``bench_io`` load equal to the saved map; ``profile_orbvoc``'s second
+     run on 10⁶ words; every frame tracked in ``profile_full``,
+     ``profile_loop`` and both ``profile_orbvoc`` runs.  The K1 and K2 runs
+     inside the tools' graph replays are counted per kernel
+     (``tools._timing.graph_kernels``).
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
 ``launches``, summed over the main-path runs of every phase, is its
 wrapper's count (``launches_by_wrapper``) plus one a graph replay
-(``launches_in_graph_replays``); ``graph_replays_profiled`` counts the
-replays the profiler saw.
+(``launches_in_graph_replays``, the tools' replays of phase 20 counted
+per kernel); ``launches_in_tools`` is phase 20's share and
+``graph_replays_profiled`` counts the replays the profiler saw.
 """
 
 from __future__ import annotations
@@ -296,6 +314,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -688,7 +707,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/19] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/20] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -702,7 +721,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/19", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/20", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -831,7 +850,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/19] {json.dumps(rec)}", flush=True)
+        print(f"[7/20] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -900,7 +919,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/19] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/20] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -925,7 +944,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/19", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/20", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1165,8 +1184,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/19")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/19")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/20")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/20")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1402,7 +1421,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/19] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/20] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1420,12 +1439,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/19] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/20] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/19] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/20] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1443,7 +1462,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/19] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/20] {part}: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1495,7 +1514,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/19] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/20] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1506,7 +1525,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg, \
             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks, \
             _EssentialCalls() as ess13, _GBACalls() as gba13:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/19", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/20", devices=MULTI_DEVICES)
     # the sharded work: the graphs' replays, plus the Python calls that ran
     # it (a graph's first call runs it eagerly, then calls it again to
     # record the capture, which runs nothing)
@@ -1524,7 +1543,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/19] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/20] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve; the mesh is
     # capturable, so every step after the warm-up's first and every chunk
@@ -1542,7 +1561,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/19", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/20", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     kg = slam._kf_graphs
     bk = kg._steps.get("bookkeep")
@@ -1559,7 +1578,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                                 replays=bk.replays if bk else 0),
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/19] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/20] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1587,7 +1606,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/19] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/20] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     out["recorded"] = dict(gba=gba13, essential=ess13)
@@ -1738,7 +1757,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/19] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/20] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1866,7 +1885,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/19] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/20] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1897,7 +1916,7 @@ def run_long(base: SLAMConfig) -> tuple:
         a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/19] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/20] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1910,7 +1929,7 @@ def run_long(base: SLAMConfig) -> tuple:
     c["gba_calls"] = gba14c.summary()
     c["loop_calls"] = loop14c.summary()
     c["kidnap_ms"] = a["kidnap_ms"]
-    print(f"[14/19] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/20] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
@@ -2030,7 +2049,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/19] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/20] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -2123,7 +2142,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/19] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/20] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2249,7 +2268,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/19] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/20] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2294,7 +2313,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/19] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/20] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2327,7 +2346,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/19] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/20] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2342,7 +2361,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2472,7 +2491,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/19] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/20] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2506,7 +2525,7 @@ class _EssentialCalls:
         self.cls.__call__ = self.orig
 
 
-def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/19] b"):
+def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/20] b"):
     """16b: the essential graph of phase 9's closure, on the inputs its
     ``correct`` gave it: the eager program (``optimize_essential``) against
     a fresh ``EssentialGraph`` — its first call (eager run and the captures
@@ -2634,11 +2653,11 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/19] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/20] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
 
 
@@ -2723,7 +2742,7 @@ def _held_mib(reserved0: int) -> float:
     return (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
 
 
-def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/19] a") -> dict:
+def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/20] a") -> dict:
     """17a: phase 9's closure (the chunks of its snapshot and its commit,
     kept by ``_GBACalls``) through a fresh ``GBAGraphs`` and through the
     same static-buffer wrappers run eagerly (``capture=False``): every chunk
@@ -2960,7 +2979,7 @@ def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
         relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
         frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
         traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
-    print(f"[17/19] b. relocalization: {json.dumps(summary)}", flush=True)
+    print(f"[17/20] b. relocalization: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17b: {bad}")
     return summary
@@ -2976,10 +2995,10 @@ def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, re
     run_reloc_graph(reloc_calls, reloc_frame_ms)
     c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
              grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
-    print(f"[17/19] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[17/20] c. scale run: {json.dumps(c)}", flush=True)
     if c["gba"]["commit"]["calls"] < 1:
         raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
-    print(f"[17/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[17/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 class _LoopCalls:
@@ -3133,7 +3152,7 @@ def run_loop_graphs(base: SLAMConfig, spied: _LoopCalls) -> dict:
     kf_ids = [int(f[0]) for f in spied.fuses]
     summary = dict(programs=rows, fuse_ids=kf_ids, held_by_graphs_mib=held, captures=captures,
                    phase9=spied.summary())
-    print(f"[18/19] a. loop graphs: {json.dumps(summary)}", flush=True)
+    print(f"[18/20] a. loop graphs: {json.dumps(summary)}", flush=True)
     if len(captures) != len(rows):
         bad.append(f"captures {captures}: one a program")
     if bad:
@@ -3156,16 +3175,16 @@ def run_loop_phase(base: SLAMConfig, loop9: _LoopCalls, loop: dict, scale: dict)
          "14c": dict({k: kf.get(k) for k in parts}, spike_ratio=scale["spike_ratio"],
                      max_after_closure_ms=scale["max_after_closure_ms"], median_ms=scale["median_ms"]),
          "eager_before": EAGER_LOOP}
-    print(f"[18/19] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
+    print(f"[18/20] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
     c = dict(loop_calls=scale["loop_calls"], grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]],
              grow_call_ms=[g["grow_call_ms"] for g in scale["grow"]], peak_mem_mib=scale["peak_mem_mib"],
              peak_mem_mib_before=EAGER_LOOP["14c"]["peak_mem_mib"])
-    print(f"[18/19] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[18/20] c. scale run: {json.dumps(c)}", flush=True)
     caps = {n: v["captures"] for n, v in scale["loop_calls"].items()}
     if any(caps.get(n) != 1 + len(scale["grow"]) for n in LOOP_PROGRAMS):
         raise AssertionError(f"18c: loop-graph captures {caps}, want one at the warm-up and one a grow "
                              f"({len(scale['grow'])} grows)")
-    print(f"[18/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[18/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _bits_equal(xs, ys) -> torch.Tensor:
@@ -3322,7 +3341,7 @@ def run_eager_mesh_route(base: SLAMConfig, multi: dict) -> dict:
              commit=dict(capture_call_span_ms=commit_spans[0], replay_span_ms=commit_spans[1],
                          captures=graphs.captures, replays=graphs.commit_replays),
              seconds=time.perf_counter() - t0)
-    print(f"[19/19] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
+    print(f"[19/20] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
     if bad:
         raise AssertionError(f"19d: {bad}")
     return d
@@ -3338,12 +3357,12 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
     of (c)'s run."""
     t0 = time.perf_counter()
     rec = multi["recorded"]
-    run_gba_graph(base, rec["gba"], tag="19/19] a")
-    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/19] b")
+    run_gba_graph(base, rec["gba"], tag="19/20] a")
+    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/20] b")
 
     split = multi["split"]
     with _BookkeepCheck() as check:
-        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/19", devices=MULTI_DEVICES)
+        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/20", devices=MULTI_DEVICES)
     bad = [i for i, f in enumerate(check.flags) if not bool(f)]
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, split["poses"]))
     storage, args = check.stores[0], check.last
@@ -3361,7 +3380,7 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
              phase13c_bookkeep_ms=multi["c"]["spans_ms"]["bookkeep"], pose_diff_vs_13c=diff,
              traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
                                                  "wall_ms", "api")})
-    print(f"[19/19] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
+    print(f"[19/20] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
     problems = [f"call {i}: the replay or the storage differs from the eager wrapper" for i in bad]
     if diff != 0.0:
         problems.append(f"the rerun's poses left 13c's by {diff}")
@@ -3374,8 +3393,150 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
         raise AssertionError(f"19c: {problems}")
     del slam, check, storage, args
     run_eager_mesh_route(base, multi)
-    print(f"[19/19] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[19/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [launches]
+
+
+# the measurement tools (phase 20): each tool's arguments on the card — the
+# JAX scripts' depths but where PERF.md lists a cut
+TOOL_ARGS = {
+    "profile_scan": [],
+    "profile_extract": [],
+    "profile_trace": [],
+    "bench_micro": [],
+    "profile_frame": [],
+    "profile_full": [],
+    "profile_loop": [],
+    "profile_kf": [],
+    "profile_ba": [],
+    "bench_posegraph": ["--reps", "1"],
+    "bench_posegraph:small": ["--sizes", "64:128", "--dense-max-k", "64", "--reps", "1"],
+    "bench_io": [],
+    "profile_orbvoc": [],
+}
+# what each tool's result must hold
+TOOL_KEYS = {
+    "profile_scan": ("ms_per_frame", "delta_ms"),
+    "profile_extract": ("ms_per_frame", "delta_ms"),
+    "profile_trace": ("replays", "sessions", "fast_nms", "patches", "top", "csv"),
+    "bench_micro": ("ms_per_frame",),
+    "profile_frame": ("ms_per_frame", "delta_ms", "tracked", "keyframes"),
+    "profile_full": ("fps", "stages", "frame_total", "tracked", "total_frames"),
+    "profile_loop": ("classes", "all_mean_ms", "tracked", "total_frames"),
+    "profile_kf": ("programs", "tracked"),
+    "profile_ba": ("programs", "absent"),
+    "bench_posegraph": ("runs", "pcg_vs_dense", "pcg_K256_ms", "dense_K256_ms", "pcg_K1024_ms", "dense_K1024_ms",
+                        "pcg_K2048_ms"),
+    "bench_posegraph:small": ("runs", "pcg_vs_dense", "pcg_K64_ms", "dense_K64_ms"),
+    "bench_io": ("formats", "max_kf_translation", "proto_vs_txt_time", "proto_vs_txt_size"),
+    "profile_orbvoc": ("orbvoc_live", "vocab_write_s", "add_detect_ratio"),
+}
+POSE_GRAPH_ROUTE_TOL = 2e-3   # tests/test_torch_pose_graph.py (dense and PCG against JAX)
+# the largest K at which 150 CG iterations a step bring the PCG route to the
+# dense route's poses in 20 steps (CPU: 7e-5 apart at 64, 0.023 at 128,
+# 0.36 at 256, where 1000 CG iterations a step agree to 2.5e-4)
+POSE_GRAPH_AGREE_K = 64
+
+
+def _times(obj, path=()):
+    """(path, value) of every time in a tool's result: the values of keys
+    ending in ``ms`` or ``_s`` and of ``ms_per_frame``, ``stages``' and
+    ``classes``' entries, ``fps`` — not the stage deltas, which noise may
+    make negative."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if k not in ("delta_ms", "top", "sessions"):
+                yield from _times(v, path + (k,))
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _times(v, path + (i,))
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool) and path:
+        key = str(path[-1])
+        named = key == "ms" or key.endswith(("_ms", "_s")) or key in ("fps", "mean", "median", "max", "total", "pre", "fetch",
+                                                          "post")
+        if named or "ms_per_frame" in path or "programs" in path:
+            yield path, obj
+
+
+def check_tool(key: str, out: dict) -> list:
+    """The problems of one tool's result (phase 20's gates); ``key`` is the
+    tool's name, or ``name:variant`` for a second run of it."""
+    name = key.split(":")[0]
+    problems = [f"{key}: no {k}" for k in TOOL_KEYS[key] if k not in out]
+    # (profile_orbvoc's vocab_write_s is 0 where build/ already held the file)
+    bad = [(p, v) for p, v in _times(out) if not (math.isfinite(v) and v > 0) and p != ("vocab_write_s",)]
+    problems += [f"{name}: {'.'.join(map(str, p))} = {v}" for p, v in bad]
+    if name == "profile_frame" and out["ms_per_frame"]["full"] < out["ms_per_frame"]["frontend"]:
+        problems.append(f"profile_frame: full {out['ms_per_frame']['full']} < frontend "
+                        f"{out['ms_per_frame']['frontend']}")
+    if name == "profile_trace":
+        n = out["replays"]
+        if out["fast_nms"] != n or out["patches"] != n or any(
+                s["fast_nms"] > n or s["patches"] > n for s in out["sessions"]):
+            problems.append(f"profile_trace: K1 / K2 seen {[(s['fast_nms'], s['patches']) for s in out['sessions']]}"
+                            f" times in {n} replays")
+    if name == "bench_posegraph":
+        problems += [f"bench_posegraph: K={r['K']} {r['route']} replays not bit-equal to the eager solve"
+                     for r in out["runs"] if not r["bit_equal"]]
+        problems += [f"bench_posegraph: K={r['K']} {r['route']} cost {r['cost']} not under a tenth of "
+                     f"{r['start_cost']}" for r in out["runs"] if not r["cost"] < 0.1 * r["start_cost"]]
+        # where both routes ran: the dense route (exact GN) at least as low as
+        # PCG's, and within the tests' tolerance of it where PCG converges
+        by = {(r["K"], r["route"]): r for r in out["runs"]}
+        for K in sorted({k for k, _ in by}):
+            if (K, "dense") in by:
+                if not by[K, "dense"]["cost"] <= by[K, "pcg"]["cost"] * (1 + 1e-3):
+                    problems.append(f"bench_posegraph: K={K} dense cost {by[K, 'dense']['cost']} over PCG's "
+                                    f"{by[K, 'pcg']['cost']}")
+                d = out["pcg_vs_dense"][f"K{K}"]
+                if K <= POSE_GRAPH_AGREE_K and not d <= POSE_GRAPH_ROUTE_TOL:
+                    problems.append(f"bench_posegraph: PCG and dense {d} apart at K={K}")
+    if name == "bench_io":
+        problems += [f"bench_io: {f} load differs from the saved state" for f, r in out["formats"].items()
+                     if r["load_equal"] is not True]
+    if name == "profile_orbvoc":
+        runs = out["orbvoc_live"]
+        if runs[1]["n_words"] != 10 ** 6:
+            problems.append(f"profile_orbvoc: the scale run has {runs[1]['n_words']} words")
+        problems += [f"profile_orbvoc: {r['label']} tracked {r['tracked']} of {r['frames']}" for r in runs
+                     if r["tracked"] != r["frames"]]
+    if name in ("profile_full", "profile_loop") and out["tracked"] != out["total_frames"]:
+        problems.append(f"{name}: tracked {out['tracked']} of {out['total_frames']}")
+    return problems
+
+
+def run_tools(args: dict = None) -> dict:
+    """Phase 20: every measurement tool's ``main`` in this process on the
+    card (``TOOL_ARGS``), each result held to ``check_tool``, the graphs of
+    one tool dropped and the cache emptied before the next.  Returns the
+    K1 / K2 launches: the wrappers' own and those inside the tools' graph
+    replays (``tools._timing.graph_kernels``)."""
+    import importlib
+
+    from orb_slam2_ros2_tpu_torch.tools import _timing as tool_timing
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    tool_timing.reset_counts()
+    problems, seconds = [], {}
+    for name, argv in (args or TOOL_ARGS).items():
+        t1 = time.perf_counter()
+        mod = importlib.import_module(f"orb_slam2_ros2_tpu_torch.tools.{name.split(':')[0]}")
+        out = mod.main(list(argv))
+        seconds[name] = time.perf_counter() - t1
+        found = check_tool(name, out)
+        problems += found
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[20/20] {name} ({seconds[name]:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB): "
+              f"{'ok' if not found else found}", flush=True)
+    launches = {**_launches(), **{f"graph_{k}": v for k, v in tool_timing.graph_kernels.items()}}
+    print(f"[20/20] done in {time.perf_counter() - t0:.1f} s; tool seconds {json.dumps(seconds)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if problems:
+        raise AssertionError(f"phase 20: {problems}")
+    return launches
 
 
 def _frame_ms(records, keyframe=None):
@@ -3390,12 +3551,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/19] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/20] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/19] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/20] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -3411,21 +3572,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/19] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/20] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/19] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/20] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/19] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/20] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/19] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/20] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -3435,7 +3596,7 @@ def main() -> int:
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     with _RelocCalls("7") as reloc7:
         reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/19] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/20] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -3443,16 +3604,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/19] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/20] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/19] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/20] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     with _EssentialCalls() as spied, _GBACalls() as gba9, _LoopCalls() as loop9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/19] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/20] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -3472,7 +3633,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/19] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/20] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -3483,7 +3644,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/19] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/20] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -3492,23 +3653,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/19] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/20] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/19] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/20] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/19] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/20] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/19")
-    print(f"[11/19] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/20")
+    print(f"[11/20] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -3519,25 +3680,25 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/19] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/19] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/20] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/20] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/19] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/20] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/19] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/20] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, multi = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/19] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/20] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
@@ -3547,21 +3708,25 @@ def main() -> int:
     run_loop_phase(base, loop9, loop, scale)
     mesh_launches = run_mesh_graphs(base, multi)
     del multi
+    tool_launches = run_tools()
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
                      blackout_launches, *shell_launches, *multi_launches, *long_launches,
-                     *remaining_launches, *graph_launches, *mesh_launches)
+                     *remaining_launches, *graph_launches, *mesh_launches, tool_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by
-    # the profiler, with each kernel once inside it
+    # the profiler, with each kernel once inside it — plus the runs inside
+    # the tools' graph replays (phase 20, counted per kernel)
     replays = sum(x["replays"] for x in runs_launches)
     counts = {}
     for name in ("fast_nms", "patches"):
         eager = sum(x[name] for x in runs_launches)
-        counts[name] = dict(launches=eager + replays, launches_by_wrapper=eager,
-                            launches_in_graph_replays=replays,
+        in_graphs = replays + sum(x.get(f"graph_{name}", 0) for x in runs_launches)
+        counts[name] = dict(launches=eager + in_graphs, launches_by_wrapper=eager,
+                            launches_in_graph_replays=in_graphs,
+                            launches_in_tools=tool_launches[name] + tool_launches[f"graph_{name}"],
                             graph_replays_profiled=_replays["profiled"])
         if eager < 1 or replays < 1:
             raise AssertionError(f"{name}: {eager} wrapper launches, {replays} graph replays on the main path")

@@ -171,6 +171,10 @@ def _select(c: torch.Tensor, a: matcher.MatchResult, b: matcher.MatchResult) -> 
     return matcher.MatchResult(idx=torch.where(c, a.idx, b.idx), dist=torch.where(c, a.dist, b.dist))
 
 
+# the truncation points of slam_track_step, in order (JAX system.py:169-256)
+STOP_AFTER = ("match1", "opt1", "match2", "vis", "opt2", "full")
+
+
 def slam_track_step(
     cam: CameraParams,
     cur: StereoFrame,
@@ -195,11 +199,20 @@ def slam_track_step(
     min_motion_matches: int,
     pose_rounds: int = 4,
     pose_iters: int = 6,
+    stop_after: str = "full",
 ):
     """One full tracking step (motion model + local map), mirroring
     Tracking::trackMotionModel + trackLocalMap (reference Tracking.cc:381-406,
     :641-675).  Returns (new frame state, velocity, host stats vector,
-    visible mask, found mask) — the masks aligned with ``local``."""
+    visible mask, found mask) — the masks aligned with ``local``.
+
+    ``stop_after`` truncates the step for a stage profile
+    (``tools/profile_frame.py``), returning what the JAX step returns there:
+    ``"match1"`` the motion-model match, ``"opt1"`` (Tcw1, n_in1, n_m1),
+    ``"match2"`` the projection match, ``"vis"`` the visible mask, ``"opt2"``
+    (Tcw2, n_tracked); ``"full"`` is the whole step."""
+    if stop_after not in STOP_AFTER:
+        raise ValueError(f"stop_after must be one of {STOP_AFTER}, got {stop_after!r}")
     N = cur.feats.capacity
     M = mp_pos.shape[0]
     dev = velocity.device
@@ -246,6 +259,8 @@ def slam_track_step(
     m1_r = _motion_match(radius)
     m1_2r = _motion_match(radius * 2)
     m1 = _select(m1_r.found.to(torch.int32).sum() < min_motion_matches, m1_2r, m1_r)
+    if stop_after == "match1":
+        return m1
 
     c1 = m1.idx.clamp(min=0).long()
     obs1 = PoseObs(
@@ -262,6 +277,8 @@ def slam_track_step(
         rounds=max(pose_rounds // 2, 1), iters_per_round=pose_iters,
     )
     n_m1 = m1.found.to(torch.int32).sum()
+    if stop_after == "opt1":
+        return Tcw1, n_in1, n_m1
 
     # per-current-feature map-point assignment inherited from the last frame
     src_mp = torch.where(m1.found & last_has_mp, last.mp_ids, -1)
@@ -282,10 +299,14 @@ def slam_track_step(
         n_levels=n_levels, max_dist=max_dist, ratio=0.8,
         precomputed_vis=vis,
     )
+    if stop_after == "match2":
+        return m2
     c2 = m2.idx.clamp(0, N - 1).long()
     cur_mp = set_drop(cur_mp, torch.where(m2.found, m2.idx, N), local.mp_ids)
 
     visible = vis[1] & local.valid
+    if stop_after == "vis":
+        return visible
     # local-map match count (trackLocalMap's nMatches ≥ 30 gate input)
     n_localmap = (cur_mp >= 0).to(torch.int32).sum()
 
@@ -310,6 +331,8 @@ def slam_track_step(
         rounds=pose_rounds, iters_per_round=pose_iters,
     )
     n_tracked = (inlier2 & has_mp).to(torch.int32).sum()
+    if stop_after == "opt2":
+        return Tcw2, n_tracked
 
     # drop outlier map-point assignments (reference Optimizer.cc:188-200)
     cur_mp = torch.where(inlier2 | ~has_mp, cur_mp, -1)

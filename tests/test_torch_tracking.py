@@ -346,3 +346,47 @@ def test_slam_track_step_parity(jax_world):
     np.testing.assert_array_equal(ns_t.mp_ids.numpy(), np.asarray(ns_j.mp_ids))
     np.testing.assert_array_equal(vis_t.numpy(), np.asarray(vis_j))
     np.testing.assert_array_equal(found_t.numpy(), np.asarray(found_j))
+
+
+@pytest.mark.parametrize("stop_after", ["match1", "opt1", "match2", "vis", "opt2"])
+def test_slam_track_step_truncations_match_jax(jax_world, stop_after):
+    """``slam_track_step(stop_after=...)`` (the stage profile's
+    truncations) returns what the JAX step returns at each point: matches,
+    masks and counts exact, poses within ``POSE_TOL``."""
+    cfg, slam, cur = jax_world
+    o, c, m, t_, b = cfg.orb, cfg.camera, cfg.matcher, cfg.tracking, cfg.ba
+    common = dict(
+        radius=t_.motion_search_radius, scale_factor=o.scale_factor, n_levels=o.n_levels,
+        baseline=c.baseline, width=c.width, height=c.height, max_dist=m.min_threshold,
+        ratio_track=m.nn_ratio_track, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo,
+        depth_threshold=c.baseline * t_.th_depth, min_motion_matches=t_.min_motion_matches,
+        pose_rounds=b.pose_rounds, pose_iters=b.pose_iters_per_round, proj_th=3.0, stop_after=stop_after,
+    )
+    out_j = jax.jit(partial(jsys.slam_track_step, **common))(
+        slam.cam, cur, slam.last, jnp.eye(4, dtype=jnp.float32), slam.local, slam.map.mp_pos, slam.map.mp_valid)
+    npt = lambda x: jax.tree.map(np.asarray, x)  # noqa: E731
+    tcam_ = tcam.CameraParams.from_config(small_cfg(tcfg).camera, "cpu")
+    out_t = tsys.slam_track_step(
+        tcam_, convert.stereo_frame_to_torch(npt(cur), "cpu"),
+        convert.slam_frame_to_torch(npt(slam.last), "cpu"), torch.eye(4),
+        convert.local_map_to_torch(npt(slam.local), "cpu"),
+        t(slam.map.mp_pos), t(slam.map.mp_valid), **common)
+    if stop_after in ("match1", "match2"):
+        assert int((n(out_t.idx) >= 0).sum()) > 10   # the step really matched
+        np.testing.assert_array_equal(n(out_t.idx), n(out_j.idx))
+        np.testing.assert_array_equal(n(out_t.dist), n(out_j.dist))
+    elif stop_after == "vis":
+        assert n(out_t).any()
+        np.testing.assert_array_equal(n(out_t), n(out_j))
+    else:
+        pose_close(n(out_t[0]), n(out_j[0]))
+        assert [int(x) for x in out_t[1:]] == [int(x) for x in out_j[1:]]
+        assert int(out_t[1]) > 30
+
+
+def test_slam_track_step_refuses_an_unknown_stop():
+    with pytest.raises(ValueError, match="stop_after"):
+        tsys.slam_track_step(None, None, None, None, None, None, None, radius=1.0, proj_th=3.0,
+                             scale_factor=1.2, n_levels=8, baseline=0.5, width=1, height=1, max_dist=50,
+                             ratio_track=0.9, chi2_mono=5.991, chi2_stereo=7.815, depth_threshold=1.0,
+                             min_motion_matches=20, stop_after="stage9")
