@@ -113,8 +113,12 @@ Phases (one line each; any failure raises and exits non-zero):
      launches, the decoder that served its images, the ms and bytes of its
      map save or load, the CUDA-event spans of its keyframe programs and
      loop stages, and its calls' ms grouped by the programs and stages each
-     ran.  A part whose library the probe found missing prints
-     ``"ran": false`` and why, and is not run; no ``--config`` is passed;
+     ran.  Then ``tum`` on a 20-frame TUM RGB-D layout of phase 8's world
+     (``rgb/`` 8-bit and ``depth/`` 16-bit PNGs written here in phase 8's
+     sensor units, ``associate.txt``, ``groundtruth.txt``) with phase 8's
+     configuration as ``--config`` YAML, gated as the ``kitti`` runs.  A
+     part whose library the probe found missing prints ``"ran": false`` and
+     why, and is not run; the ``kitti`` runs pass no ``--config``;
  13. multi-device on the one card (it has one GPU: two shards or two roles
      share it, which measures the cost of the sharding, not scaling):
      a. ``entry.dryrun_multichip(2, devices=["cuda:0", "cuda:0"])`` — the
@@ -298,13 +302,38 @@ Phases (one line each; any failure raises and exits non-zero):
      ``profile_loop`` and both ``profile_orbvoc`` runs.  The K1 and K2 runs
      inside the tools' graph replays are counted per kernel
      (``tools._timing.graph_kernels``).
+ 21. the benches, in this process at the JAX scripts' sizes: (a)
+     ``tools.bench`` (full SLAM over 84 frames of the KITTI-like world, then
+     the 80-frame return pass replayed through the SLAM's frame graph with
+     its state carried, an untimed run and 3 timed; the local-BA window
+     solve) with ``tools.bench_full`` as its subprocess (40 warm and 80
+     timed pipelined frames); gates: exit code 0, median inliers ≥ 300,
+     the subprocess's exit code 0, its ATE gate passed and every timed
+     frame tracked, K1 and K2 once in
+     each of the ≥ 320 return-pass replays; (b) ``tools.bench_loop`` (two
+     laps of the 100-frame circle): a closure and a finite spike ratio; (c)
+     ``tools.bench_scaling`` (C=1024, P=200,000, O=6 solved unsharded and
+     over 2, 4 and 8 slots of the card, once each after an untimed solve):
+     every time positive, every cost finite, every solve's robust cost
+     (the gated Huber cost it minimises) below the start's, and each
+     sharded solve's cameras within 1e-4 m / 1e-3° of the unsharded
+     solve's; then the same mesh sizes on the dry run's corridor at phase
+     13a's C=256, P=25,000 with ``bench_scaling``'s settings, each sharded
+     solve against the unsharded one: in float64 every camera within
+     1e-4 m / 1e-3°, every point within 1 mm + 2e-4 and the gates within
+     2 (``tests/test_torch_sharded_solvers.py``'s tolerances); in float32
+     within 5 mm / 0.01°, a point excess of 2 mm and 2 gates, the rounding
+     floor of a problem whose last cameras see few points or none (the
+     unsharded solve of the points reordered is printed beside them).
+     Each bench's lines, the phase's seconds and its launches are printed.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
 ``launches``, summed over the main-path runs of every phase, is its
 wrapper's count (``launches_by_wrapper``) plus one a graph replay
-(``launches_in_graph_replays``, the tools' replays of phase 20 counted
-per kernel); ``launches_in_tools`` is phase 20's share and
+(``launches_in_graph_replays``, the tools' and the benches' replays of
+phases 20 and 21 counted per kernel); ``launches_in_tools`` and
+``launches_in_benches`` are phase 20's and 21's shares and
 ``graph_replays_profiled`` counts the replays the profiler saw.
 """
 
@@ -396,6 +425,7 @@ SHELL_MAX_ATE = 0.05     # fraction of path length (tests/test_cli_e2e.py:150)
 SHELL_LOST_SYNTH = 0     # frames the synth run may lose
 SHELL_LOST = 2           # ... a kitti run (tests/test_cli_e2e.py:146)
 SHELL_LOST_LOADED = 4    # ... a run on a loaded map (tests/test_cli_e2e.py:211)
+SHELL_TUM_FRAMES = 20    # the tum layout: phase 8's world and length
 SHELL_PROFILED_CALL = 10  # the traced call of each CLI run: a replay after the
 #                          loop programs' warm-up (call 5 or 6 of a mapping run)
 # multi-device phase: two mesh slots, or the tracker's and the map's device,
@@ -707,7 +737,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/20] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/21] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -721,7 +751,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/20", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/21", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -850,7 +880,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/20] {json.dumps(rec)}", flush=True)
+        print(f"[7/21] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -919,7 +949,7 @@ def run_rgbd(cfg: SLAMConfig):
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/20] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[8/21] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -944,7 +974,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/20", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/21", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1184,8 +1214,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/20")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/20")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/21")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/21")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1273,16 +1303,19 @@ def probe_shell() -> dict:
     return out
 
 
-def write_png_gray8(path: str, img: np.ndarray) -> None:
-    """An 8-bit greyscale PNG (filter 0 on every row), written with zlib."""
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """A greyscale PNG of a uint8 (8-bit) or uint16 (16-bit) image (filter 0
+    on every row), written with zlib."""
     h, w = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+    depth = 8 * img.dtype.itemsize
+    rows = img.astype(">u2").view(np.uint8).reshape(h, 2 * w) if depth == 16 else img
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
@@ -1303,12 +1336,42 @@ def write_kitti_layout(root: str, cfg: SLAMConfig, n: int, speed: float) -> floa
     for i in range(n):
         img_l, img_r, Twc = ds.frame(i)
         for d, img in (("image_0", img_l), ("image_1", img_r)):
-            write_png_gray8(os.path.join(root, d, f"{i:06d}.png"),
+            write_png_gray(os.path.join(root, d, f"{i:06d}.png"),
                             img.clamp(0, 255).to(torch.uint8).cpu().numpy())
         poses.append(Twc)
     with open(os.path.join(root, "times.txt"), "w") as f:
         f.write("".join(f"{0.1 * i:.6f}\n" for i in range(n)))
     write_kitti(os.path.join(root, "poses.txt"), poses)
+    return path_length(poses)
+
+
+def write_tum_layout(root: str, cfg: SLAMConfig, n: int, device="cuda") -> float:
+    """A TUM RGB-D sequence on disk (rgb/ depth/ associate.txt
+    groundtruth.txt) of phase 8's world: 8-bit images, 16-bit depth maps in
+    ``cfg``'s sensor units (0, no reading, past the 16-bit range), the
+    ground truth scaled as phase 8 scales it; returns its path length."""
+    from orb_slam2_ros2_tpu_torch.io.trajectory import rotation_to_quat
+
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, d))
+    ds = SyntheticStereoDataset(cfg.camera, n_frames=n, speed=SPEED, device=device)
+    assoc, gt, poses = [], ["# timestamp tx ty tz qx qy qz qw"], []
+    for i in range(n):
+        img, depth, Twc = ds.frame_with_depth(i)
+        Twc = Twc.copy()
+        Twc[:3, 3] *= RGBD_WORLD_SCALE
+        d = (depth * (RGBD_WORLD_SCALE * cfg.camera.depth_scale)).cpu().numpy()
+        s = f"{1000.0 + 0.05 * i:.6f}"
+        write_png_gray(os.path.join(root, "rgb", f"{s}.png"), img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+        write_png_gray(os.path.join(root, "depth", f"{s}.png"),
+                       np.where(np.isfinite(d) & (d > 0) & (d < 65535), np.rint(d), 0).astype(np.uint16))
+        assoc.append(f"{s} rgb/{s}.png {s} depth/{s}.png")
+        q, t = rotation_to_quat(Twc[:3, :3]), Twc[:3, 3]
+        gt.append(f"{s} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+        poses.append(Twc)
+    for name, lines in (("associate.txt", assoc), ("groundtruth.txt", gt)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
     return path_length(poses)
 
 
@@ -1421,7 +1484,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/20] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/21] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1439,12 +1502,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/20] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/21] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/20] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/21] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1462,7 +1525,24 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/20] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/21] {part}: {json.dumps(parts[-1])}", flush=True)
+        # tum on a TUM RGB-D layout of phase 8's world, with phase 8's configuration as YAML
+        if probe["yaml"] != "missing" and probe["PIL"] != "missing":
+            t0 = time.perf_counter()
+            tum_cfg = rgbd_config(cfg)
+            path = write_tum_layout(f"{tmp}/tum", tum_cfg, SHELL_TUM_FRAMES)
+            with open(f"{tmp}/tum.yaml", "w") as f:
+                f.write(json.dumps({"camera": TUM_CAMERA, "tracking": TUM_TRACKING}))   # JSON is YAML
+            layout_s = time.perf_counter() - t0
+            args = ["--config", f"{tmp}/tum.yaml"]
+            res = run_cli(["tum", "--seq", f"{tmp}/tum", "--device", "cuda", "--out", f"{tmp}/t", *args])
+            _check_run("tum", res, SHELL_TUM_FRAMES, SHELL_LOST, path, f"{tmp}/t", min_keyframes=2)
+            res["layout_write_s"] = layout_s
+            launches.append(res["launches"])
+            parts.append(dict(part="tum", ran=True, argv=args, path_len_m=path, **res))
+        else:
+            parts.append(dict(part="tum", ran=False, why="PyYAML or Pillow missing"))
+        print(f"[12/21] tum: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1514,7 +1594,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/20] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/21] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1525,7 +1605,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg, \
             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks, \
             _EssentialCalls() as ess13, _GBACalls() as gba13:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/20", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/21", devices=MULTI_DEVICES)
     # the sharded work: the graphs' replays, plus the Python calls that ran
     # it (a graph's first call runs it eagerly, then calls it again to
     # record the capture, which runs nothing)
@@ -1543,7 +1623,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/20] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/21] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve; the mesh is
     # capturable, so every step after the warm-up's first and every chunk
@@ -1561,7 +1641,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/20", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/21", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     kg = slam._kf_graphs
     bk = kg._steps.get("bookkeep")
@@ -1578,7 +1658,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                                 replays=bk.replays if bk else 0),
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/20] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/21] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1606,7 +1686,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/20] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/21] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     out["recorded"] = dict(gba=gba13, essential=ess13)
@@ -1757,7 +1837,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/20] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/21] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1885,7 +1965,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/20] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/21] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1916,7 +1996,7 @@ def run_long(base: SLAMConfig) -> tuple:
         a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/20] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/21] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -1929,7 +2009,7 @@ def run_long(base: SLAMConfig) -> tuple:
     c["gba_calls"] = gba14c.summary()
     c["loop_calls"] = loop14c.summary()
     c["kidnap_ms"] = a["kidnap_ms"]
-    print(f"[14/20] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/21] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
@@ -2049,7 +2129,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/20] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/21] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -2142,7 +2222,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/20] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/21] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2268,7 +2348,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/20] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/21] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2313,7 +2393,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/20] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/21] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2346,7 +2426,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/20] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/21] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2361,7 +2441,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2491,7 +2571,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/20] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/21] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2525,7 +2605,7 @@ class _EssentialCalls:
         self.cls.__call__ = self.orig
 
 
-def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/20] b"):
+def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/21] b"):
     """16b: the essential graph of phase 9's closure, on the inputs its
     ``correct`` gave it: the eager program (``optimize_essential``) against
     a fresh ``EssentialGraph`` — its first call (eager run and the captures
@@ -2653,11 +2733,11 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/20] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/21] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
 
 
@@ -2742,7 +2822,7 @@ def _held_mib(reserved0: int) -> float:
     return (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
 
 
-def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/20] a") -> dict:
+def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/21] a") -> dict:
     """17a: phase 9's closure (the chunks of its snapshot and its commit,
     kept by ``_GBACalls``) through a fresh ``GBAGraphs`` and through the
     same static-buffer wrappers run eagerly (``capture=False``): every chunk
@@ -2979,7 +3059,7 @@ def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
         relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
         frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
         traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
-    print(f"[17/20] b. relocalization: {json.dumps(summary)}", flush=True)
+    print(f"[17/21] b. relocalization: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17b: {bad}")
     return summary
@@ -2995,10 +3075,10 @@ def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, re
     run_reloc_graph(reloc_calls, reloc_frame_ms)
     c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
              grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
-    print(f"[17/20] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[17/21] c. scale run: {json.dumps(c)}", flush=True)
     if c["gba"]["commit"]["calls"] < 1:
         raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
-    print(f"[17/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[17/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 class _LoopCalls:
@@ -3152,7 +3232,7 @@ def run_loop_graphs(base: SLAMConfig, spied: _LoopCalls) -> dict:
     kf_ids = [int(f[0]) for f in spied.fuses]
     summary = dict(programs=rows, fuse_ids=kf_ids, held_by_graphs_mib=held, captures=captures,
                    phase9=spied.summary())
-    print(f"[18/20] a. loop graphs: {json.dumps(summary)}", flush=True)
+    print(f"[18/21] a. loop graphs: {json.dumps(summary)}", flush=True)
     if len(captures) != len(rows):
         bad.append(f"captures {captures}: one a program")
     if bad:
@@ -3175,16 +3255,16 @@ def run_loop_phase(base: SLAMConfig, loop9: _LoopCalls, loop: dict, scale: dict)
          "14c": dict({k: kf.get(k) for k in parts}, spike_ratio=scale["spike_ratio"],
                      max_after_closure_ms=scale["max_after_closure_ms"], median_ms=scale["median_ms"]),
          "eager_before": EAGER_LOOP}
-    print(f"[18/20] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
+    print(f"[18/21] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
     c = dict(loop_calls=scale["loop_calls"], grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]],
              grow_call_ms=[g["grow_call_ms"] for g in scale["grow"]], peak_mem_mib=scale["peak_mem_mib"],
              peak_mem_mib_before=EAGER_LOOP["14c"]["peak_mem_mib"])
-    print(f"[18/20] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[18/21] c. scale run: {json.dumps(c)}", flush=True)
     caps = {n: v["captures"] for n, v in scale["loop_calls"].items()}
     if any(caps.get(n) != 1 + len(scale["grow"]) for n in LOOP_PROGRAMS):
         raise AssertionError(f"18c: loop-graph captures {caps}, want one at the warm-up and one a grow "
                              f"({len(scale['grow'])} grows)")
-    print(f"[18/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[18/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _bits_equal(xs, ys) -> torch.Tensor:
@@ -3341,7 +3421,7 @@ def run_eager_mesh_route(base: SLAMConfig, multi: dict) -> dict:
              commit=dict(capture_call_span_ms=commit_spans[0], replay_span_ms=commit_spans[1],
                          captures=graphs.captures, replays=graphs.commit_replays),
              seconds=time.perf_counter() - t0)
-    print(f"[19/20] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
+    print(f"[19/21] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
     if bad:
         raise AssertionError(f"19d: {bad}")
     return d
@@ -3357,12 +3437,12 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
     of (c)'s run."""
     t0 = time.perf_counter()
     rec = multi["recorded"]
-    run_gba_graph(base, rec["gba"], tag="19/20] a")
-    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/20] b")
+    run_gba_graph(base, rec["gba"], tag="19/21] a")
+    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/21] b")
 
     split = multi["split"]
     with _BookkeepCheck() as check:
-        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/20", devices=MULTI_DEVICES)
+        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/21", devices=MULTI_DEVICES)
     bad = [i for i, f in enumerate(check.flags) if not bool(f)]
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, split["poses"]))
     storage, args = check.stores[0], check.last
@@ -3380,7 +3460,7 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
              phase13c_bookkeep_ms=multi["c"]["spans_ms"]["bookkeep"], pose_diff_vs_13c=diff,
              traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
                                                  "wall_ms", "api")})
-    print(f"[19/20] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
+    print(f"[19/21] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
     problems = [f"call {i}: the replay or the storage differs from the eager wrapper" for i in bad]
     if diff != 0.0:
         problems.append(f"the rerun's poses left 13c's by {diff}")
@@ -3393,7 +3473,7 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
         raise AssertionError(f"19c: {problems}")
     del slam, check, storage, args
     run_eager_mesh_route(base, multi)
-    print(f"[19/20] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[19/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [launches]
 
 
@@ -3529,13 +3609,156 @@ def run_tools(args: dict = None) -> dict:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        print(f"[20/20] {name} ({seconds[name]:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB): "
+        print(f"[20/21] {name} ({seconds[name]:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB): "
               f"{'ok' if not found else found}", flush=True)
     launches = {**_launches(), **{f"graph_{k}": v for k, v in tool_timing.graph_kernels.items()}}
-    print(f"[20/20] done in {time.perf_counter() - t0:.1f} s; tool seconds {json.dumps(seconds)}; launches "
+    print(f"[20/21] done in {time.perf_counter() - t0:.1f} s; tool seconds {json.dumps(seconds)}; launches "
           f"{json.dumps(launches)}", flush=True)
     if problems:
         raise AssertionError(f"phase 20: {problems}")
+    return launches
+
+
+# the benches (phase 21): bench_scaling's mesh sizes against the unsharded
+# solve on the dry run's corridor (entry.gba_problem) at phase 13a's C=256
+# and P=25,000 with bench_scaling's solver settings.  In float64 every
+# camera and point is held to tests/test_torch_sharded_solvers.py's
+# tolerances.  In float32, the production dtype, the bound is the rounding
+# floor: the corridor's yaw turns its last cameras away from the points
+# (cameras 141-147 see 1-4 points, 148-255 none), so a reordering of the
+# same problem's points moves the float32 unsharded solve by up to 2.18 mm,
+# 0.0066° and a point excess of 0.54 mm (14 reorderings on the CPU), where
+# the float64 solve moves by 2e-12 m
+BENCH_SCALING_ARGS = ["--reps", "1"]
+CORRIDOR_C, CORRIDOR_P = 256, 25_000
+SHARDED_TOL = {torch.float64: dict(pose_diff_m=1e-4, rot_diff_deg=1e-3, point_excess_m=0.0, gate_diff=2),
+               torch.float32: dict(pose_diff_m=5e-3, rot_diff_deg=1e-2, point_excess_m=2e-3, gate_diff=2)}
+SCALING_POSE_TOL = SHARDED_TOL[torch.float64]
+
+
+def _bench_call(mod, argv) -> tuple:
+    """(result, exit code) of a bench's ``main``: 1 where it raised
+    ``Failed`` after its lines (its gate failed)."""
+    from orb_slam2_ros2_tpu_torch.tools import _timing as tool_timing
+
+    try:
+        return mod.main(list(argv)), 0
+    except tool_timing.Failed as e:
+        return e.result, e.code
+
+
+def run_corridor_shards(dtype, shards, seed: int = 0, device: str = "cuda") -> dict:
+    """The dry run's corridor in ``dtype`` on ``device``, solved unsharded and
+    over each mesh size of ``shards`` with ``bench_scaling``'s settings:
+    ``entry.gba_gap`` of each sharded solve from the unsharded one, and
+    under ``"reordered"`` that of the unsharded solve of the same problem
+    with its points in a random order (the rounding floor)."""
+    from orb_slam2_ros2_tpu_torch import entry
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams
+    from orb_slam2_ros2_tpu_torch.parallel.mesh import ba_mesh
+    from orb_slam2_ros2_tpu_torch.solvers.pcg_ba import PointBAProblem, solve_global_ba, solve_global_ba_sharded
+    from orb_slam2_ros2_tpu_torch.tools.bench_scaling import SOLVER
+
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    cam, prob = entry.gba_problem(CORRIDOR_C, CORRIDOR_P, device=device)
+    cam, prob = CameraParams(*map(cast, cam)), PointBAProblem(*map(cast, prob))
+    one = solve_global_ba(cam, prob, **SOLVER)
+    out = {str(n): entry.gba_gap(solve_global_ba_sharded(cam, prob, ba_mesh(n, devices=[device] * n), **SOLVER),
+                                 one, prob.pt_valid) for n in shards}
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(CORRIDOR_P)).to(device)
+    T, p, g = solve_global_ba(cam, PointBAProblem(*(t[perm] if t.shape[0] == CORRIDOR_P else t for t in prob)),
+                              **SOLVER)
+    inv = torch.argsort(perm)
+    out["reordered"] = entry.gba_gap((T, p[inv], g[:, inv]), one, prob.pt_valid)
+    return out
+
+
+def run_benches() -> dict:
+    """Phase 21: ``tools.bench`` (with its ``bench_full`` subprocess),
+    ``tools.bench_loop`` and ``tools.bench_scaling`` in this process on the
+    card at the JAX scripts' sizes (``bench_scaling`` timed once a mesh
+    size), each result gated, then ``bench_scaling``'s mesh sizes on the
+    corridor.  Returns the K1 / K2 launches: the wrappers' own and one each
+    a frame-graph replay of the benches' SLAMs (``note_slam``)."""
+    from orb_slam2_ros2_tpu_torch.tools import _timing as tool_timing
+    from orb_slam2_ros2_tpu_torch.tools import bench, bench_loop, bench_scaling
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    tool_timing.reset_counts()
+    problems, seconds = [], {}
+
+    def ran(name, t1):
+        seconds[name] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    out, rc = _bench_call(bench, [])
+    ran("bench", t1)
+    replays = dict(tool_timing.graph_kernels)
+    full, gate = out["full_slam"], out["quality_gate"]
+    if rc != 0:
+        problems.append(f"bench: exit code {rc}")
+    if not (gate["pass"] and gate["median_inliers"] >= MIN_MEDIAN_INLIERS):
+        problems.append(f"bench: median inliers {gate['median_inliers']} < {MIN_MEDIAN_INLIERS}")
+    fd = (full or {}).get("detail", {})
+    if full is None or full["rc"] != 0 or fd.get("ate_gate_pass") is not True or fd["tracked"] != fd["n_frames"]:
+        problems.append(f"bench_full: {json.dumps(full)[:3000]}")
+    want = (1 + 3) * bench.N_FRAMES   # the return pass's replays: the untimed run and 3 timed
+    if not (replays["fast_nms"] == replays["patches"] >= want):
+        problems.append(f"bench: K1 / K2 in {replays} frame-graph replays, want ≥ {want}")
+    headline = {k: out[k] for k in ("metric", "value", "unit", "vs_baseline")}
+    print(f"[21/21] bench ({seconds['bench']:.1f} s): {json.dumps(headline)}; detail {json.dumps(out['detail'])}; gate "
+          f"{json.dumps(gate)}; K1 / K2 in frame-graph replays {json.dumps(replays)}", flush=True)
+    print(f"[21/21] bench_full (subprocess, its launches counted in its own process): {json.dumps(full)}",
+          flush=True)
+
+    t1 = time.perf_counter()
+    loop, rc = _bench_call(bench_loop, [])
+    ran("bench_loop", t1)
+    ratio = loop["value"]
+    if rc != 0 or ratio is None or not (math.isfinite(ratio) and ratio > 0) or not loop["detail"]["closures"]:
+        problems.append(f"bench_loop: {json.dumps(loop)}")
+    print(f"[21/21] bench_loop ({seconds['bench_loop']:.1f} s): {json.dumps(loop)}", flush=True)
+
+    t1 = time.perf_counter()
+    scaling, rc = _bench_call(bench_scaling, BENCH_SCALING_ARGS)
+    ran("bench_scaling", t1)
+    start = scaling["robust_cost"]["start"]
+    problems += [f"bench_scaling: after the {n}-slot solve cost {c}, robust cost {scaling['robust_cost'][n]} "
+                 f"(start {start})" for n, c in scaling["cost"].items()
+                 if n != "start" and not (math.isfinite(c) and scaling["robust_cost"][n] < start)]
+    problems += [f"bench_scaling: {n} slots {t} s" for n, t in scaling["seconds"].items()
+                 if not (math.isfinite(t) and t > 0)]
+    problems += [f"bench_scaling: {n} slots {json.dumps(d)} from the unsharded poses"
+                 for n, d in scaling["pose_diff_vs_1"].items()
+                 if not (d["m"] <= SCALING_POSE_TOL["pose_diff_m"] and d["deg"] <= SCALING_POSE_TOL["rot_diff_deg"])]
+    if rc != 0:
+        problems.append(f"bench_scaling: exit code {rc}")
+    print(f"[21/21] bench_scaling ({seconds['bench_scaling']:.1f} s): {json.dumps(scaling)}", flush=True)
+
+    shards = [int(n) for n in scaling["seconds"] if n != "1"]
+    for dtype in (torch.float64, torch.float32):
+        name, t1 = f"corridor_{str(dtype)[-7:]}", time.perf_counter()
+        gaps = run_corridor_shards(dtype, shards)
+        ran(name, t1)
+        tol = SHARDED_TOL[dtype]
+        problems += [f"{name}, {n} slots: {json.dumps(r)} beyond {json.dumps(tol)}" for n, r in gaps.items()
+                     if n != "reordered" and any(r[k] > lim for k, lim in tol.items())]
+        print(f"[21/21] the corridor C={CORRIDOR_C} P={CORRIDOR_P} in {dtype} with bench_scaling's settings "
+              f"({seconds[name]:.1f} s): each mesh size against the unsharded solve {json.dumps(gaps)}, "
+              f"gated at {json.dumps(tol)} (the 'reordered' entry, the unsharded solve of the points in "
+              f"another order, is the rounding floor and not gated)", flush=True)
+
+    launches = {**_launches(), **{f"graph_{k}": v for k, v in tool_timing.graph_kernels.items()}}
+    print(f"[21/21] done in {time.perf_counter() - t0:.1f} s; seconds {json.dumps(seconds)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if problems:
+        raise AssertionError(f"phase 21: {problems}")
     return launches
 
 
@@ -3551,12 +3774,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/20] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/21] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/20] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/21] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -3572,21 +3795,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/20] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/21] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/20] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/21] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/20] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/21] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/20] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/21] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -3596,7 +3819,7 @@ def main() -> int:
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     with _RelocCalls("7") as reloc7:
         reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/20] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/21] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -3604,16 +3827,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/20] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/21] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/20] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/21] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     with _EssentialCalls() as spied, _GBACalls() as gba9, _LoopCalls() as loop9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/20] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/21] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -3633,7 +3856,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/20] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/21] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -3644,7 +3867,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/20] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/21] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -3653,23 +3876,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/20] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/21] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/20] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/21] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/20] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/21] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/20")
-    print(f"[11/20] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/21")
+    print(f"[11/21] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -3680,25 +3903,25 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/20] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/20] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/21] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/21] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/20] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/21] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/20] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/21] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, multi = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/20] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/21] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
@@ -3709,16 +3932,18 @@ def main() -> int:
     mesh_launches = run_mesh_graphs(base, multi)
     del multi
     tool_launches = run_tools()
+    bench_launches = run_benches()
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
                      blackout_launches, *shell_launches, *multi_launches, *long_launches,
-                     *remaining_launches, *graph_launches, *mesh_launches, tool_launches)
+                     *remaining_launches, *graph_launches, *mesh_launches, tool_launches, bench_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by
     # the profiler, with each kernel once inside it — plus the runs inside
-    # the tools' graph replays (phase 20, counted per kernel)
+    # the tools' and the benches' graph replays (phases 20 and 21, counted per
+    # kernel)
     replays = sum(x["replays"] for x in runs_launches)
     counts = {}
     for name in ("fast_nms", "patches"):
@@ -3727,6 +3952,7 @@ def main() -> int:
         counts[name] = dict(launches=eager + in_graphs, launches_by_wrapper=eager,
                             launches_in_graph_replays=in_graphs,
                             launches_in_tools=tool_launches[name] + tool_launches[f"graph_{name}"],
+                            launches_in_benches=bench_launches[name] + bench_launches[f"graph_{name}"],
                             graph_replays_profiled=_replays["profiled"])
         if eager < 1 or replays < 1:
             raise AssertionError(f"{name}: {eager} wrapper launches, {replays} graph replays on the main path")

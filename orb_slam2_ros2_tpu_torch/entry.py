@@ -250,6 +250,19 @@ def _rot_deg(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(torch.arcsin((0.5 * skew.norm(dim=-1)).clamp(max=1.0)))
 
 
+def gba_gap(solved, one, pt_valid: torch.Tensor) -> dict:
+    """How far a global-BA solve ``solved`` (Tcw, points, gates) lies from
+    the one-shard solve ``one`` of the same problem: the largest camera
+    translation (m) and rotation (°) difference, the largest point
+    difference beyond 1 mm + 2e-4·|p| over the valid points (≤ 0 inside
+    it) and the number of gates that differ."""
+    (Tn, pn, gn), (T1, p1, g1) = solved, one
+    return dict(pose_diff_m=float((Tn[:, :3, 3] - T1[:, :3, 3]).abs().max()),
+                rot_diff_deg=float(_rot_deg(Tn, T1).max()),
+                point_excess_m=float(((pn - p1).abs() - (1e-3 + 2e-4 * p1.abs()))[pt_valid].max()),
+                gate_diff=int((gn != g1).sum()))
+
+
 def split_config() -> SLAMConfig:
     """The split's configuration in the dry run (the JAX dry run's)."""
     return SLAMConfig(
@@ -292,12 +305,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     (T1, p1, g1), ms_1, peak_1 = _timed(lambda: solve_global_ba(cam, prob, **GBA_KW), dev)
     if not (torch.isfinite(Tn).all() and torch.isfinite(pn).all()):
         raise AssertionError("the sharded global BA left non-finite values")
-    ok = prob.pt_valid
     out.update(gba_ms=ms_n, gba_1shard_ms=ms_1, gba_peak_mib=peak_n, gba_1shard_peak_mib=peak_1,
-               gba_pose_diff_m=float((Tn[:, :3, 3] - T1[:, :3, 3]).abs().max()),
-               gba_rot_diff_deg=float(_rot_deg(Tn, T1).max()),
-               gba_point_excess_m=float(((pn - p1).abs() - (1e-3 + 2e-4 * p1.abs()))[ok].max()),
-               gba_gate_diff=int((gn != g1).sum()))
+               **{f"gba_{k}": v for k, v in gba_gap((Tn, pn, gn), (T1, p1, g1), prob.pt_valid).items()})
     print(f"dryrun 1/3: sharded global BA C={C} P={P} ok | {n_devices}-shard {ms_n:.1f} ms vs "
           f"1-shard {ms_1:.1f} ms ({'CUDA events' if on_card else 'host clock'}; {dev})", flush=True)
 

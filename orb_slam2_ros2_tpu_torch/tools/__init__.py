@@ -15,9 +15,16 @@ which build from ``csrc/`` at first use.
 Counterparts: ``profile_scan``, ``profile_extract``, ``profile_trace``,
 ``bench_micro``, ``profile_frame``, ``profile_full``, ``profile_loop``,
 ``profile_kf``, ``profile_ba``, ``bench_posegraph``, ``bench_io``,
-``profile_orbvoc``; ``bench_scale_run.py`` is ``orb_slam2_ros2_tpu_torch.scale_run``.
+``profile_orbvoc``, and the benches ``bench`` (the production frame graph
+replayed over the return pass with its state carried from frame to frame),
+``bench_full`` (full SLAM with the ATE gate), ``bench_loop`` (the closure's
+frame-time spike) and ``bench_scaling`` (the sharded global BA over mesh
+slots); ``bench_scale_run.py`` is ``orb_slam2_ros2_tpu_torch.scale_run``.
+A bench whose gate fails raises ``_timing.Failed`` (exit code 1) after its
+lines.  ``bench_reference_cpu.py`` times OpenCV's ORB, not this system,
+and has no counterpart.
 """
 
 TOOLS = ("profile_scan", "profile_extract", "profile_trace", "bench_micro", "profile_frame",
          "profile_full", "profile_loop", "profile_kf", "profile_ba", "bench_posegraph", "bench_io",
-         "profile_orbvoc")
+         "profile_orbvoc", "bench", "bench_full", "bench_loop", "bench_scaling")

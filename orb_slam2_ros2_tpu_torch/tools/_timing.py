@@ -45,6 +45,15 @@ from ..pipeline.frame_graph import StepGraph, tree_leaves
 graph_kernels = {"fast_nms": 0, "patches": 0}
 
 
+class Failed(SystemExit):
+    """A tool's gate failed: exit code 1, raised after its lines are
+    printed; ``result`` is what its ``main`` would have returned."""
+
+    def __init__(self, result: dict):
+        super().__init__(1)
+        self.result = result
+
+
 def reset_counts() -> None:
     """Zero ``graph_kernels`` (the wrappers' own counts are theirs to reset)."""
     for k in graph_kernels:

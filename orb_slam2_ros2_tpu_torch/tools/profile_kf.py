@@ -15,13 +15,16 @@ the storage inside the graph, as ``frame_graph.KeyframeGraphs`` does):
   snapshot, and the frame snapshot of the last frame's points;
 * ``map_tail``'s: local BA and the keyframe cull;
 * loop add+detect (``loop_closing.LoopGraphs.detect``: the keyframe's BoW
-  row written into a copy of the keyframe database and its query).
+  row written into a copy of the keyframe database and its query);
+* the background GBA on a snapshot of the map (``start_global_ba``, not
+  timed): one chunk (one GN step, ungated) and the commit, through a
+  ``global_ba.GBAGraphs`` as the system replays them, beside the eager
+  ``step_global_ba`` and ``commit_global_ba``.  The commit's propagation
+  depth is read once, before the timed calls.
 
 Every program that writes runs on a copy of the map (``.to(device,
 copy=True)``) that is restored before each call, outside the timed window,
-so the map profiled stays the same across reps.  The GBA chunk and commit
-of JAX's script are profiled by ``chip_smoke.py`` (phase 17) and
-``profile_loop_closure.py``.
+so the map profiled stays the same across reps.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..mapstate.mapping import cull_keyframes, cull_mappoints, fuse_into_keyfram
 from ..pipeline.frame_graph import KeyframeGraphs, donating, id_tensor
 from ..pipeline.loop_closing import LoopGraphs
 from ..pipeline.system import SLAM
+from ..solvers.global_ba import GBAGraphs, _propagate_depth, commit_global_ba, start_global_ba, step_global_ba
 from ..solvers.local_ba import local_ba
 from . import _frames, _timing
 
@@ -142,6 +146,19 @@ def main(argv=None) -> dict:
                           eager=lambda k: lg.eager["detect"](pristine, db, k))
         res["loop_add_detect"] = {"ms": r["ms"], "eager_ms": r["eager_ms"]}
         del lg, db
+
+    # the background GBA's chunk and commit on a snapshot of the map
+    pend = start_global_ba(pristine, o.scale_factor)
+    solver = dict(pcg_iters=b.pcg_iters, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo)
+    gba = GBAGraphs(n_iters=1, capture=dev.type == "cuda", **solver)
+    capacity = (pristine.kf_capacity, pristine.mp_capacity)
+    r = _timing.bench(lambda p: gba.step(p, cam, robust_after=1, capacity=capacity), (pend,), dev, reps=args.reps,
+                      graph=False, eager=lambda p: step_global_ba(p, cam, n_iters=1, robust_after=1, **solver))
+    res["gba_chunk"] = {"ms": r["ms"], "eager_ms": r["eager_ms"]}
+    depth = _propagate_depth(pristine, pend)
+    time_it("gba_commit", lambda p: gba.commit(storage, p, propagate_depth=depth), (pend,), pristine, graph=False,
+            eager=lambda p: commit_global_ba(storage, p, propagate_depth=depth), fixed=())
+    del gba, pend
     out = {"warm": args.warm, "tracked": tracked, "keyframes": slam.n_keyframes, "mappoints": slam.n_mappoints,
            "reps": args.reps, "programs": res}
     del slam, storage, after

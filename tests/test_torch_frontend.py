@@ -120,7 +120,8 @@ def test_import_leaves_jax_out():
         "        'io.native_loader', 'io.proto_map', 'io.txt_map', 'proto', 'viewer', 'viz',\n"
         "        'ros2_bridge', 'validation', 'scale_run', 'train_corpus_vocab', 'pipeline.tracking',\n"
         "        'pipeline.frame_graph', 'solvers.schur_ba', 'features.extractor', 'tools._timing',\n"
-        "        'tools.profile_frame', 'tools.profile_orbvoc', 'tools.bench_posegraph']\n"
+        "        'tools.profile_frame', 'tools.profile_orbvoc', 'tools.bench_posegraph', 'tools.bench',\n"
+        "        'tools.bench_full', 'tools.bench_loop', 'tools.bench_scaling']\n"
         "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'orb_slam2_ros2_tpu.'))"

@@ -52,7 +52,7 @@ def test_profile_kf(small_yaml):  # noqa: F811
     out = run("profile_kf", "--config", small_yaml, "--warm", "4", "--reps", "1")
     assert set(out["programs"]) == {"map_front", "map_tail", "insert_keyframe", "cull_mappoints", "triangulate",
                                     "fuse_fwd", "fuse_bwd", "snapshot_kf", "snapshot_frame", "local_ba",
-                                    "cull_keyframes", "loop_add_detect"}
+                                    "cull_keyframes", "loop_add_detect", "gba_chunk", "gba_commit"}
     assert program_times_ok(out["programs"]) and out["tracked"] == 4
 
 
