@@ -326,6 +326,36 @@ Phases (one line each; any failure raises and exits non-zero):
      floor of a problem whose last cameras see few points or none (the
      unsharded solve of the points reordered is printed beside them).
      Each bench's lines, the phase's seconds and its launches are printed.
+ 22. the last paths the JAX package flies: (a) ``configs/tum_fr2.yaml`` as
+     shipped (640×480, its five distortion coefficients, 2000 features,
+     ``th_depth`` 40): phase 8's world rendered with its pinhole
+     intrinsics, then each frame warped into the lens on the card
+     (``warp_to_distorted``, the counterpart of
+     ``tests/test_distorted_e2e.py``'s warp: intensity bilinear, depth
+     nearest, zero outside), ``SLAM(rgbd=True)`` on the pinhole frames
+     (the configuration without its lens) and on the warped frames (the
+     configuration itself); gates: every frame ``OK``, each run one
+     capture, frames ≥ 2 free of host syncs, each kernel once a frame, the
+     distorted ATE under max(2.5 × the pinhole run's, 3% of the path) and
+     phase 8's 4%, more than 300 map points; printed: both runs' frame ms
+     and the device ms of one replay of each frame graph, the
+     undistortion's device ms alone (as a graph), the keypoints whose
+     undistorted ``uv`` left the image; (b) ``cli tum --config configs/tum_fr2.yaml``
+     (the file itself) on a TUM layout of the warped frames, gated as
+     phase 12's ``tum`` run; (c) ``tests/test_slam_e2e.py``'s noise at the
+     default ``SLAMConfig()``: 25 frames of the default world at 0.35
+     m/frame with σ = 6 grey levels of Gaussian noise on both images,
+     drawn on the card from a seeded generator before each call; gates:
+     ≥ 90% tracked, ATE under 8% of the path; (d) phase 6's world with
+     one frame forced weak (``min_localmap_matches`` 10⁶ and no keyframe
+     on the call that resolves it, after ≥ 2 keyframes), synchronous and
+     pipelined on the graph; gates: the reference-keyframe fallback
+     recovers it within 0.05 m, every frame ``OK``, the weak call traced
+     (each kernel once a frame-program run); pipelined, the successor
+     re-dispatched as one replay and no capture on the local map the weak
+     frame was dispatched with, the poses within 1 cm / 0.1° of the
+     synchronous run's; (e) ``entry.dryrun_multichip(1)`` with no devices
+     named runs on the card.
 
 Before the last line come the run's total seconds, a JSON object with one
 entry per kernel and the card line; the last line is ``{"ok": true, "device": {...}}``.  A kernel's
@@ -737,7 +767,7 @@ def run_slice(cfg: SLAMConfig):
         err = _trans_err(pose, Twc_gt)
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, trans_err_m=err, n_inliers=stats.get("n_inliers"),
                    n_tracked=stats.get("n_tracked"), n_mappoints=stats.get("n_mappoints"))
-        print(f"[5/21] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[5/22] frame {i}: {json.dumps(rec)}", flush=True)
         if err > MAX_TRANS_ERR_M:
             raise AssertionError(f"frame {i}: translation error {err:.4f} m > {MAX_TRANS_ERR_M}")
         records.append(rec)
@@ -751,7 +781,7 @@ def run_slice(cfg: SLAMConfig):
     return records, launches, med
 
 
-def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/21", devices=None):
+def run_mapping(cfg: SLAMConfig, mode: str = "graph", tag: str = "6/22", devices=None):
     """Full SLAM (keyframes, mapping, local BA; no loop closing) over the
     KITTI-like synthetic sequence; ``mode`` "graph" (the default path on the
     card: the frame program replayed as a CUDA graph), "eager" (the frame
@@ -880,7 +910,7 @@ def run_relocalization(map_slam: SLAM, cfg: SLAMConfig, frames):
                    n_inliers=stats.get("n_inliers"), reloc_kf=stats.get("reloc_kf"),
                    reloc_candidates=stats.get("reloc_candidates"),
                    trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
-        print(f"[7/21] {json.dumps(rec)}", flush=True)
+        print(f"[7/22] {json.dumps(rec)}", flush=True)
         if kind == "blank":
             if pose is not None or slam.state != TrackState.LOST:
                 raise AssertionError(f"blank frame: state {slam.state}, stats {stats}")
@@ -922,34 +952,87 @@ def rgbd_config(base: SLAMConfig) -> SLAMConfig:
     )
 
 
-def run_rgbd(cfg: SLAMConfig):
-    """RGB-D SLAM (no loop closing) at the TUM fr2 size: RGB images and
-    depth maps in sensor units of the default world shrunk by
-    ``RGBD_WORLD_SCALE``.  Returns (records, launch counts, summary)."""
+def warp_to_distorted(cam, img: torch.Tensor, depth: torch.Tensor) -> tuple:
+    """A pinhole render warped into the distorted camera's image plane, the
+    counterpart of ``tests/test_distorted_e2e.py``'s ``_warp_to_distorted``:
+    the distorted image at pixel u_d shows the pinhole content at u_p =
+    ``undistort_points(cam, u_d)``, intensity bilinear, depth nearest (an
+    interpolated depth across a discontinuity invents 3D points), zero where
+    u_p leaves the image.  ``img`` and ``depth`` are [H, W] on ``cam``'s
+    device."""
+    from orb_slam2_ros2_tpu_torch.geometry.camera import undistort_points
+
+    H, W = img.shape
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=img.device),
+                            torch.arange(W, dtype=torch.float32, device=img.device), indexing="ij")
+    src = undistort_points(cam, torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1))
+    x, y = src[:, 0], src[:, 1]
+    inb = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    # out-of-image (and diverged, non-finite) sources are masked; clamp
+    # their indices into the image first
+    xc = torch.nan_to_num(x, nan=0.0).clamp(-1.0, float(W))
+    yc = torch.nan_to_num(y, nan=0.0).clamp(-1.0, float(H))
+    x0 = torch.floor(xc).long().clamp(0, W - 2)
+    y0 = torch.floor(yc).long().clamp(0, H - 2)
+    fx_ = (x - x0).clamp(0.0, 1.0)
+    fy_ = (y - y0).clamp(0.0, 1.0)
+    i00, i01 = img[y0, x0], img[y0, x0 + 1]
+    i10, i11 = img[y0 + 1, x0], img[y0 + 1, x0 + 1]
+    val = (1 - fy_) * ((1 - fx_) * i00 + fx_ * i01) + fy_ * ((1 - fx_) * i10 + fx_ * i11)
+    img_d = torch.where(inb, val, 0.0).reshape(H, W)
+    xn = torch.round(xc).long().clamp(0, W - 1)
+    yn = torch.round(yc).long().clamp(0, H - 1)
+    dep = torch.where(inb, depth[yn, xn], 0.0).reshape(H, W)
+    return img_d, dep
+
+
+def rgbd_frames(cfg: SLAMConfig, warp_cam=None) -> list:
+    """Phase 8's world at ``cfg``'s camera, rendered on the card with its
+    pinhole intrinsics: (RGB image, depth map in sensor units, Twc) a
+    frame, the default world shrunk by ``RGBD_WORLD_SCALE``; with
+    ``warp_cam`` each frame warped into that camera's lens
+    (``warp_to_distorted``)."""
     ds = SyntheticStereoDataset(cfg.camera, n_frames=RGBD_FRAMES, speed=SPEED, device="cuda")
     frames = []
-    for i in range(RGBD_FRAMES):  # rendered on the card, set-up
+    for i in range(RGBD_FRAMES):
         img, depth, Twc = ds.frame_with_depth(i)
         Twc = Twc.copy()
         Twc[:3, 3] *= RGBD_WORLD_SCALE
-        frames.append((img[:, :, None].expand(-1, -1, 3).contiguous(),
-                       depth * (RGBD_WORLD_SCALE * cfg.camera.depth_scale), Twc))
+        depth = depth * (RGBD_WORLD_SCALE * cfg.camera.depth_scale)
+        if warp_cam is not None:
+            img, depth = warp_to_distorted(warp_cam, img, depth)
+        frames.append((img[:, :, None].expand(-1, -1, 3).contiguous(), depth, Twc))
+    return frames
+
+
+def run_rgbd(cfg: SLAMConfig, frames=None, tag: str = "8/22"):
+    """RGB-D SLAM (no loop closing) at the TUM fr2 size over ``frames``
+    (``rgbd_frames(cfg)`` by default: RGB images and depth maps in sensor
+    units of the default world shrunk by ``RGBD_WORLD_SCALE``).  Returns
+    (records, launch counts, summary); the summary also counts, a frame,
+    the valid keypoints whose undistorted ``uv`` left the image, and times
+    one replay of the frame graph on the device."""
+    frames = rgbd_frames(cfg) if frames is None else frames  # rendered on the card, set-up
+    W, H = cfg.camera.width, cfg.camera.height
     slam = SLAM(cfg, rgbd=True, enable_loop_closing=False, device="cuda")
     torch.cuda.synchronize()
 
     _reset_launches()
-    records = []
+    records, outside = [], []
     for i, (rgb, depth, Twc_gt) in enumerate(frames):
         n_kf_before = slam._n_kf
         slam.frame_sync_debug_mode = "error" if i >= 2 else None
         pose, stats, ms = _track(slam, i, rgb, depth, profile=i == PROFILED_CALL)
         if slam.state != TrackState.OK or pose is None:
-            raise AssertionError(f"frame {i}: state {slam.state}, stats {stats}")
+            raise AssertionError(f"[{tag}] frame {i}: state {slam.state}, stats {stats}")
+        feats = slam.last.frame.feats
+        u, v = feats.uv[:, 0], feats.uv[:, 1]
+        outside.append((feats.valid & ((u < 0) | (u > W - 1) | (v < 0) | (v > H - 1))).sum())
         rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, keyframe=slam._n_kf > n_kf_before,
                    n_inliers=stats.get("n_inliers"),
                    n_kf=slam._n_kf, n_mappoints=stats.get("n_mappoints"),
                    trans_err_m=_trans_err(pose, Twc_gt))
-        print(f"[8/21] frame {i}: {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] frame {i}: {json.dumps(rec)}", flush=True)
         records.append(rec)
     slam.flush()
     torch.cuda.synchronize()
@@ -957,13 +1040,25 @@ def run_rgbd(cfg: SLAMConfig):
     launches = _launches()
     gt = [f[2] for f in frames]
     ate = ate_rmse([np.linalg.inv(T.astype(np.float64)) for _, T in slam.trajectory], gt)
-    path_len = float(sum(np.linalg.norm(gt[i + 1][:3, 3] - gt[i][:3, 3]) for i in range(RGBD_FRAMES - 1)))
+    path_len = float(sum(np.linalg.norm(gt[i + 1][:3, 3] - gt[i][:3, 3]) for i in range(len(frames) - 1)))
     summary = dict(ate_m=ate, path_len_m=path_len, n_keyframes=slam.n_keyframes,
                    frame_graph_captures=_captures(slam),
-                   n_mappoints=slam.n_mappoints, init_mappoints=records[0]["n_mappoints"])
+                   n_mappoints=slam.n_mappoints, init_mappoints=records[0]["n_mappoints"],
+                   uv_outside_image=torch.stack(outside).tolist(),
+                   replay_device_ms=_frame_graph_device_ms(slam))
     if not ate < MAX_ATE_RGBD * path_len:
-        raise AssertionError(f"RGB-D ATE {ate:.4f} m ≥ {MAX_ATE_RGBD} × {path_len:.3f} m")
+        raise AssertionError(f"[{tag}] RGB-D ATE {ate:.4f} m ≥ {MAX_ATE_RGBD} × {path_len:.3f} m")
     return records, launches, summary
+
+
+def _frame_graph_device_ms(slam: SLAM) -> float:
+    """Device ms of one replay of the SLAM's one captured frame graph, timed
+    after its run (the replays bump the map's counters again): 20 replays
+    back to back with no sleep ahead, since a frame graph's nodes fill the
+    launch queue and the host then waits on the device, which stays busy."""
+    (step, _), = slam._frame_graphs._steps.values()
+    (captured,) = step._graphs.values()
+    return device_ms(captured.graph.replay, runs=20, warmup=2, queue_ahead=False)
 
 
 def _span_ms(slam: SLAM) -> dict:
@@ -974,7 +1069,7 @@ def _span_ms(slam: SLAM) -> dict:
     return spans
 
 
-def run_loop(cfg: SLAMConfig, tag: str = "9/21", devices=None):
+def run_loop(cfg: SLAMConfig, tag: str = "9/22", devices=None):
     """Full SLAM with loop closing around the circle world: the first lap,
     then the second lap (bench_loop.py's index rule) until the background
     GBA has committed, at most LOOP_EXTRA frames, then ``flush()``.  The
@@ -1214,8 +1309,8 @@ def run_pipelined_vs_sync(cfg: SLAMConfig, sync: dict, sync_records):
     its ATE passes phase 6's gates and stays within 1.5 × the synchronous
     run's + 0.03 m, its keyframes within ±3 of it.  Returns (launch counts
     of both runs, summary, the pipelined SLAM)."""
-    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/21")
-    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/21")
+    eager_records, eager_launches, eager, _, _ = run_mapping(cfg, "eager", "11/22")
+    pipe_records, pipe_launches, pipe, pipe_slam, _ = run_mapping(cfg, "pipelined", "11/22")
     if not pipe["ate_live_m"] <= 1.5 * sync["ate_live_m"] + 0.03:
         raise AssertionError(f"pipelined live ATE {pipe['ate_live_m']:.4f} m > 1.5 × sync "
                              f"{sync['ate_live_m']:.4f} m + 0.03")
@@ -1345,11 +1440,12 @@ def write_kitti_layout(root: str, cfg: SLAMConfig, n: int, speed: float) -> floa
     return path_length(poses)
 
 
-def write_tum_layout(root: str, cfg: SLAMConfig, n: int, device="cuda") -> float:
+def write_tum_layout(root: str, cfg: SLAMConfig, n: int, device="cuda", warp=None) -> float:
     """A TUM RGB-D sequence on disk (rgb/ depth/ associate.txt
     groundtruth.txt) of phase 8's world: 8-bit images, 16-bit depth maps in
     ``cfg``'s sensor units (0, no reading, past the 16-bit range), the
-    ground truth scaled as phase 8 scales it; returns its path length."""
+    ground truth scaled as phase 8 scales it; ``warp(img, depth)``, when
+    given, maps each rendered pair first.  Returns its path length."""
     from orb_slam2_ros2_tpu_torch.io.trajectory import rotation_to_quat
 
     for d in ("rgb", "depth"):
@@ -1358,6 +1454,8 @@ def write_tum_layout(root: str, cfg: SLAMConfig, n: int, device="cuda") -> float
     assoc, gt, poses = [], ["# timestamp tx ty tz qx qy qz qw"], []
     for i in range(n):
         img, depth, Twc = ds.frame_with_depth(i)
+        if warp is not None:
+            img, depth = warp(img, depth)
         Twc = Twc.copy()
         Twc[:3, 3] *= RGBD_WORLD_SCALE
         d = (depth * (RGBD_WORLD_SCALE * cfg.camera.depth_scale)).cpu().numpy()
@@ -1484,7 +1582,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
         _check_run("synth", res, SHELL_SYNTH_FRAMES, SHELL_LOST_SYNTH, synth_path, f"{tmp}/s", min_keyframes=4)
         parts.append(dict(part="synth", ran=True, subprocess_s=time.perf_counter() - t0,
                           path_len_m=synth_path, **res))
-        print(f"[12/21] synth (python -m ..., its launches are counted in its own process): "
+        print(f"[12/22] synth (python -m ..., its launches are counted in its own process): "
               f"{json.dumps(parts[-1])}", flush=True)
 
         seq = f"{tmp}/00"
@@ -1502,12 +1600,12 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                      ("load txt", ["--load-map", txt], SHELL_LOST_LOADED, None)]
         else:
             parts.append(dict(part="map formats", ran=False, why="google.protobuf missing"))
-            print(f"[12/21] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/22] {json.dumps(parts[-1])}", flush=True)
         if probe["matplotlib"] != "missing":
             runs.append(("viewer", ["--viewer", f"{tmp}/film", "--viewer-every", "10"], SHELL_LOST, None))
         else:
             parts.append(dict(part="viewer", ran=False, why="matplotlib missing"))
-            print(f"[12/21] {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/22] {json.dumps(parts[-1])}", flush=True)
         for i, (part, args, lost, saves) in enumerate(runs):
             out = f"{tmp}/k{i}"
             res = run_cli([*kitti, "--out", out, *args])
@@ -1525,7 +1623,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
                 res["saved_bytes"] = sum(os.path.getsize(f) for f in files)
             launches.append(res["launches"])
             parts.append(dict(part=part, ran=True, argv=args, path_len_m=path, **res))
-            print(f"[12/21] {part}: {json.dumps(parts[-1])}", flush=True)
+            print(f"[12/22] {part}: {json.dumps(parts[-1])}", flush=True)
         # tum on a TUM RGB-D layout of phase 8's world, with phase 8's configuration as YAML
         if probe["yaml"] != "missing" and probe["PIL"] != "missing":
             t0 = time.perf_counter()
@@ -1542,7 +1640,7 @@ def run_shell(cfg: SLAMConfig, probe: dict) -> tuple:
             parts.append(dict(part="tum", ran=True, argv=args, path_len_m=path, **res))
         else:
             parts.append(dict(part="tum", ran=False, why="PyYAML or Pillow missing"))
-        print(f"[12/21] tum: {json.dumps(parts[-1])}", flush=True)
+        print(f"[12/22] tum: {json.dumps(parts[-1])}", flush=True)
     return launches, parts
 
 
@@ -1594,7 +1692,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     bad = {k: dry[k] for k, lim in (("gba_pose_diff_m", 1e-4), ("gba_rot_diff_deg", 1e-3),
                                     ("gba_point_excess_m", 0.0), ("gba_gate_diff", 2), ("pg_diff", 2e-3))
            if not dry[k] <= lim}
-    print(f"[13/21] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
+    print(f"[13/22] a. dry run, 2 shards on one card: {json.dumps(dry)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     if bad:
         raise AssertionError(f"the sharded solves left the one-shard solves' tolerances: {bad}")
@@ -1605,7 +1703,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
     with _Spy(pg_mod, "_gn_step_pcg_sharded", lambda *a, **kw: True) as pcg, \
             _Spy(gba_mod, "global_ba_phase", lambda *a, axis=None, **kw: axis is not None) as chunks, \
             _EssentialCalls() as ess13, _GBACalls() as gba13:
-        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/21", devices=MULTI_DEVICES)
+        _, loop_launches, lp = run_loop(mesh_cfg, tag="13/22", devices=MULTI_DEVICES)
     # the sharded work: the graphs' replays, plus the Python calls that ran
     # it (a graph's first call runs it eagerly, then calls it again to
     # record the capture, which runs nothing)
@@ -1623,7 +1721,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
              ate_live_m=lp["ate_live_m"], ate_final_m=lp["ate_final_m"], path_len_m=lp["path_len_m"],
              median_frame_ms=lp["median_frame_ms"], phase9_median_frame_ms=loop["median_frame_ms"],
              peak_mem_mib=lp["peak_mem_mib"], spans_ms=spans, seconds=time.perf_counter() - t0)
-    print(f"[13/21] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
+    print(f"[13/22] b. loop world over a 2-shard mesh: {json.dumps(b)}", flush=True)
     # the loop programs' warm-up runs 20 sharded steps and 2 chunks, the
     # closure 20 steps and every chunk of the background solve; the mesh is
     # capturable, so every step after the warm-up's first and every chunk
@@ -1641,7 +1739,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
 
     t0 = time.perf_counter()
     split_cfg = map_cfg.replace(dist=dataclasses.replace(map_cfg.dist, tracker_mapper_split=True))
-    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/21", devices=MULTI_DEVICES)
+    recs, split_launches, sm, slam, _ = run_mapping(split_cfg, "split", "13/22", devices=MULTI_DEVICES)
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, map_poses))
     kg = slam._kf_graphs
     bk = kg._steps.get("bookkeep")
@@ -1658,7 +1756,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                                 replays=bk.replays if bk else 0),
              map_device=str(slam.map_device), tracker_device=str(slam.device),
              seconds=time.perf_counter() - t0)
-    print(f"[13/21] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
+    print(f"[13/22] c. tracker/mapper split on one card: {json.dumps(c)}, launches {split_launches}", flush=True)
     if len(slam.trajectory) != MAP_FRAMES:
         raise AssertionError(f"the split tracked {len(slam.trajectory)} of {MAP_FRAMES} frames")
     if not diff <= SPLIT_POSE_ATOL:
@@ -1686,7 +1784,7 @@ def run_multi_device(base: SLAMConfig, map_cfg: SLAMConfig, loop: dict, map_summ
                                                               2e-3 if k == "pg_T" else 1e-4)}
         if bad:
             raise AssertionError(f"rank {rank} left the one-process mesh's tolerances: {bad}")
-    print(f"[13/21] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
+    print(f"[13/22] d. two gloo ranks on one card against the one-process 2-shard mesh: {json.dumps(d)}",
           flush=True)
     out["d"] = d
     out["recorded"] = dict(gba=gba13, essential=ess13)
@@ -1837,7 +1935,7 @@ def run_adversarial(cfg: SLAMConfig, frames: _Frames, n_frames: int, tag: str, k
         summary.update(kidnap_ok=round(rate * n_att), kidnap_attempts=n_att,
                        kidnap_ms=[round(r["ms"], 1) for r in records[n_frames:]])
     launches = _launches()
-    print(f"[14/21] {tag}: {json.dumps(summary)}", flush=True)
+    print(f"[14/22] {tag}: {json.dumps(summary)}", flush=True)
     if not ate_live < MAX_ATE_LIVE * path:
         raise AssertionError(f"{tag}: live ATE {ate_live:.4f} m ≥ {MAX_ATE_LIVE} × {path:.2f} m")
     if not ate_final < MAX_ATE_FINAL * path:
@@ -1965,7 +2063,7 @@ def run_scale(base: SLAMConfig):
                           for k, v in spans.items()},
         peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
     )
-    print(f"[14/21] c. scale run: {json.dumps(summary)}", flush=True)
+    print(f"[14/22] c. scale run: {json.dumps(summary)}", flush=True)
     problems = list(st["bad"])
     if not kf_doublings or not res["pcg_essential_in_system"]:
         problems.append(f"keyframe store {res['start_capacity'][0]} → {res['final_capacity'][0]}: "
@@ -1996,7 +2094,7 @@ def run_long(base: SLAMConfig) -> tuple:
         a_launches, a = run_adversarial(base, frames, ADV_FRAMES, "a. adversarial, synchronous", kidnap=True)
     pipe_cfg = base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True))
     b_launches, b = run_adversarial(pipe_cfg, frames, ADV_FRAMES, "b. adversarial, pipelined", kidnap=False)
-    print(f"[14/21] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
+    print(f"[14/22] a/b: {ADV_FRAMES} frames each ({render_s:.1f} s to render), keyframes "
           f"{a['keyframes_inserted']} / {b['keyframes_inserted']}, wall {a['wall_s']:.3f} / {b['wall_s']:.3f} s, "
           f"closures {a['closures']} / {b['closures']}, frame-level queries {a['frame_loop_queries']} / "
           f"{b['frame_loop_queries']}, weak-frame recoveries {a['weak_frame_recoveries']} / "
@@ -2009,7 +2107,7 @@ def run_long(base: SLAMConfig) -> tuple:
     c["gba_calls"] = gba14c.summary()
     c["loop_calls"] = loop14c.summary()
     c["kidnap_ms"] = a["kidnap_ms"]
-    print(f"[14/21] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
+    print(f"[14/22] c: {c['frames']} frames, {c['keyframes_inserted']} keyframes, grows "
           f"{[(g['frame'], g['frm'], g['to']) for g in c['grow']]}, closures at {c['closure_calls']}, "
           f"{c['captures']} captures, {len(c['replay_vs_eager'])} replays bit-equal to eager, fps "
           f"{[p['fps'] for p in c['fps_curve']]}, map {c['final_map_mb']} MB, peak device memory "
@@ -2129,7 +2227,7 @@ def run_extractor_single(base: SLAMConfig):
         if not torch.equal(got, want):
             raise AssertionError(f"15a: {name} differs from its plain map in {int((got != want).sum())} pixels")
     out = dict(valid=int(feats.valid.sum()), capacity=feats.capacity, launches=launches)
-    print(f"[15/21] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
+    print(f"[15/22] a. one-image extractor: {json.dumps(out)}; bit-equal with the plain twins; "
           f"fast_score_dispatch and fast_score_nms_dispatch bit-equal to fast_score / nms3(fast_score) "
           f"on the {tuple(x.shape)} image", flush=True)
     return launches
@@ -2222,7 +2320,7 @@ def run_odometry(base: SLAMConfig):
                replay_profile={k: prof[k] for k in ("launches", "graph_launches", "kernels", "kernel_ms")},
                graph_nodes=nodes, trace=trace,
                sync_debug="error: no host synchronisation in the eager steps or the replays")
-    print(f"[15/21] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
+    print(f"[15/22] b. odometry: {json.dumps(out)}; {ODO_FRAMES - 1} fused steps bit-equal eager / replay",
           flush=True)
     return tracker_launches, graph_launches
 
@@ -2348,7 +2446,7 @@ def run_schur_ba(base: SLAMConfig, gen: torch.Generator) -> dict:
                cpu_pose_diff_m=d_m, cpu_rot_diff_deg=d_deg, points_with_an_inlier=int(kept.sum()),
                cpu_point_diff_m=d_pts, cpu_gate_diff=d_gate,
                sync_debug="error: no host synchronisation")
-    print(f"[15/21] c. Schur BA: {json.dumps(out)}", flush=True)
+    print(f"[15/22] c. Schur BA: {json.dumps(out)}", flush=True)
     if not (cost1 < cost0 and chi1 < 0.1 * chi0):
         raise AssertionError(f"15c: robust cost {cost0:.1f} → {cost1:.1f}, clean edges' median χ² "
                              f"{chi0:.3f} → {chi1:.3f}")
@@ -2393,7 +2491,7 @@ def run_corpus(base: SLAMConfig):
         raise AssertionError(f"15d: K1 over the four-image table ({table.batch} images) differs from its twin")
     if not np.array_equal(descs, descs_plain):
         raise AssertionError("15d: corpus descriptors with the kernels differ from the plain twins'")
-    print(f"[15/21] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
+    print(f"[15/22] d. corpus (depth cut to {CORPUS_DEPTH}, {CORPUS_PAIRS} pairs a world): {json.dumps(stats)}; "
           f"K1 over the 4-image table ({table.n_tiles} tiles, {len(table.level_shapes)} levels × 4 "
           f"images) and the batch's descriptors bit-equal to the plain twins; launches {launches}", flush=True)
     return launches, stats
@@ -2426,7 +2524,7 @@ def run_profiled(map_cfg: SLAMConfig):
         raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
                              f"{json.dumps(st)}")
     summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/21] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+    print(f"[15/22] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 
@@ -2441,7 +2539,7 @@ def run_remaining(base: SLAMConfig, map_cfg: SLAMConfig, gen: torch.Generator) -
     run_schur_ba(base, gen)
     d, _ = run_corpus(base)
     e, _ = run_profiled(map_cfg)
-    print(f"[15/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[15/22] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a, b_tracker, b_graph, d, e]
 
 
@@ -2571,7 +2669,7 @@ def run_keyframe_graphs(map_cfg: SLAMConfig):
                graph_replays=g.replays, map_copy_bytes=slam.map_copy_bytes,
                peak_mem_mib_above_start=peak / 2 ** 20, held_by_graphs_mib=held / 2 ** 20,
                frame_ms_median=_frame_ms(records))
-    print(f"[16/21] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
+    print(f"[16/22] a. keyframe programs: {json.dumps(out)}, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"16a: {bad}")
     return launches, out
@@ -2605,7 +2703,7 @@ class _EssentialCalls:
         self.cls.__call__ = self.orig
 
 
-def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/21] b"):
+def run_essential_graph(base: SLAMConfig, spied: _EssentialCalls, loop: dict, tag: str = "16/22] b"):
     """16b: the essential graph of phase 9's closure, on the inputs its
     ``correct`` gave it: the eager program (``optimize_essential``) against
     a fresh ``EssentialGraph`` — its first call (eager run and the captures
@@ -2733,11 +2831,11 @@ def run_graph_phase(map_cfg: SLAMConfig, base: SLAMConfig, spied: _EssentialCall
     a_launches, _ = run_keyframe_graphs(map_cfg)
     run_essential_graph(base, spied, loop)
     spans = {k: scale["keyframe_span_ms"].get(k) for k in ("map_front", "map_tail", "correct", "optimize_essential")}
-    print(f"[16/21] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
+    print(f"[16/22] c. scale run: {scale['frames']} frames in {scale['wall_s']:.3f} s, fps "
           f"{[p['fps'] for p in scale['fps_curve']]}, spans {json.dumps(spans)} | eager keyframe programs "
           f"and essential graph (commit 11141c4): {EAGER_SCALE['wall_s']} s, fps {EAGER_SCALE['fps']}",
           flush=True)
-    print(f"[16/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[16/22] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [a_launches]
 
 
@@ -2822,7 +2920,7 @@ def _held_mib(reserved0: int) -> float:
     return (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
 
 
-def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/21] a") -> dict:
+def run_gba_graph(base: SLAMConfig, spied: _GBACalls, tag: str = "17/22] a") -> dict:
     """17a: phase 9's closure (the chunks of its snapshot and its commit,
     kept by ``_GBACalls``) through a fresh ``GBAGraphs`` and through the
     same static-buffer wrappers run eagerly (``capture=False``): every chunk
@@ -3059,7 +3157,7 @@ def run_reloc_graph(spied: list, frame_ms: dict) -> dict:
         relocalize_host_ms=dict(median=statistics.median(live_ms), max=max(live_ms), n=len(live_ms)) if live_ms else None,
         frame_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v)) for k, v in frame_ms.items() if v},
         traced=traced, eager_frame_ms_before=EAGER_RELOC_FRAME_MS, eager_kernel_ms_before=EAGER_CASCADE_KERNEL_MS)
-    print(f"[17/21] b. relocalization: {json.dumps(summary)}", flush=True)
+    print(f"[17/22] b. relocalization: {json.dumps(summary)}", flush=True)
     if bad:
         raise AssertionError(f"17b: {bad}")
     return summary
@@ -3075,10 +3173,10 @@ def run_gba_reloc_phase(base: SLAMConfig, gba9: _GBACalls, reloc_calls: list, re
     run_reloc_graph(reloc_calls, reloc_frame_ms)
     c = dict(closures=scale["closure_calls"], gba=scale["gba_calls"], gba_capture_log=scale["gba_capture_log"],
              grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]])
-    print(f"[17/21] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[17/22] c. scale run: {json.dumps(c)}", flush=True)
     if c["gba"]["commit"]["calls"] < 1:
         raise AssertionError(f"17c: no GBA committed in the scale run: {c}")
-    print(f"[17/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[17/22] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 class _LoopCalls:
@@ -3232,7 +3330,7 @@ def run_loop_graphs(base: SLAMConfig, spied: _LoopCalls) -> dict:
     kf_ids = [int(f[0]) for f in spied.fuses]
     summary = dict(programs=rows, fuse_ids=kf_ids, held_by_graphs_mib=held, captures=captures,
                    phase9=spied.summary())
-    print(f"[18/21] a. loop graphs: {json.dumps(summary)}", flush=True)
+    print(f"[18/22] a. loop graphs: {json.dumps(summary)}", flush=True)
     if len(captures) != len(rows):
         bad.append(f"captures {captures}: one a program")
     if bad:
@@ -3255,16 +3353,16 @@ def run_loop_phase(base: SLAMConfig, loop9: _LoopCalls, loop: dict, scale: dict)
          "14c": dict({k: kf.get(k) for k in parts}, spike_ratio=scale["spike_ratio"],
                      max_after_closure_ms=scale["max_after_closure_ms"], median_ms=scale["median_ms"]),
          "eager_before": EAGER_LOOP}
-    print(f"[18/21] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
+    print(f"[18/22] b. the closure's correct in parts: {json.dumps(b)}", flush=True)
     c = dict(loop_calls=scale["loop_calls"], grows=[(g["frame"], g["frm"], g["to"]) for g in scale["grow"]],
              grow_call_ms=[g["grow_call_ms"] for g in scale["grow"]], peak_mem_mib=scale["peak_mem_mib"],
              peak_mem_mib_before=EAGER_LOOP["14c"]["peak_mem_mib"])
-    print(f"[18/21] c. scale run: {json.dumps(c)}", flush=True)
+    print(f"[18/22] c. scale run: {json.dumps(c)}", flush=True)
     caps = {n: v["captures"] for n, v in scale["loop_calls"].items()}
     if any(caps.get(n) != 1 + len(scale["grow"]) for n in LOOP_PROGRAMS):
         raise AssertionError(f"18c: loop-graph captures {caps}, want one at the warm-up and one a grow "
                              f"({len(scale['grow'])} grows)")
-    print(f"[18/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[18/22] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _bits_equal(xs, ys) -> torch.Tensor:
@@ -3421,7 +3519,7 @@ def run_eager_mesh_route(base: SLAMConfig, multi: dict) -> dict:
              commit=dict(capture_call_span_ms=commit_spans[0], replay_span_ms=commit_spans[1],
                          captures=graphs.captures, replays=graphs.commit_replays),
              seconds=time.perf_counter() - t0)
-    print(f"[19/21] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
+    print(f"[19/22] d. the eager mesh route (a mesh Mesh.capturable refuses): {json.dumps(d)}", flush=True)
     if bad:
         raise AssertionError(f"19d: {bad}")
     return d
@@ -3437,12 +3535,12 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
     of (c)'s run."""
     t0 = time.perf_counter()
     rec = multi["recorded"]
-    run_gba_graph(base, rec["gba"], tag="19/21] a")
-    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/21] b")
+    run_gba_graph(base, rec["gba"], tag="19/22] a")
+    run_essential_graph(base, rec["essential"], multi["b_loop"], tag="19/22] b")
 
     split = multi["split"]
     with _BookkeepCheck() as check:
-        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/21", devices=MULTI_DEVICES)
+        recs, launches, sm, slam, _ = run_mapping(split["cfg"], "split", "19/22", devices=MULTI_DEVICES)
     bad = [i for i, f in enumerate(check.flags) if not bool(f)]
     diff = max(float(np.abs(a - b).max()) for (_, a), b in zip(slam.trajectory, split["poses"]))
     storage, args = check.stores[0], check.last
@@ -3460,7 +3558,7 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
              phase13c_bookkeep_ms=multi["c"]["spans_ms"]["bookkeep"], pose_diff_vs_13c=diff,
              traced_replay={k: prof[k] for k in ("graph_launches", "launches", "device_kernels", "kernel_ms",
                                                  "wall_ms", "api")})
-    print(f"[19/21] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
+    print(f"[19/22] c. the split's bookkeeping: {json.dumps(c)}", flush=True)
     problems = [f"call {i}: the replay or the storage differs from the eager wrapper" for i in bad]
     if diff != 0.0:
         problems.append(f"the rerun's poses left 13c's by {diff}")
@@ -3473,7 +3571,7 @@ def run_mesh_graphs(base: SLAMConfig, multi: dict) -> list:
         raise AssertionError(f"19c: {problems}")
     del slam, check, storage, args
     run_eager_mesh_route(base, multi)
-    print(f"[19/21] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[19/22] done in {time.perf_counter() - t0:.1f} s", flush=True)
     return [launches]
 
 
@@ -3609,10 +3707,10 @@ def run_tools(args: dict = None) -> dict:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        print(f"[20/21] {name} ({seconds[name]:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB): "
+        print(f"[20/22] {name} ({seconds[name]:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB): "
               f"{'ok' if not found else found}", flush=True)
     launches = {**_launches(), **{f"graph_{k}": v for k, v in tool_timing.graph_kernels.items()}}
-    print(f"[20/21] done in {time.perf_counter() - t0:.1f} s; tool seconds {json.dumps(seconds)}; launches "
+    print(f"[20/22] done in {time.perf_counter() - t0:.1f} s; tool seconds {json.dumps(seconds)}; launches "
           f"{json.dumps(launches)}", flush=True)
     if problems:
         raise AssertionError(f"phase 20: {problems}")
@@ -3712,9 +3810,9 @@ def run_benches() -> dict:
     if not (replays["fast_nms"] == replays["patches"] >= want):
         problems.append(f"bench: K1 / K2 in {replays} frame-graph replays, want ≥ {want}")
     headline = {k: out[k] for k in ("metric", "value", "unit", "vs_baseline")}
-    print(f"[21/21] bench ({seconds['bench']:.1f} s): {json.dumps(headline)}; detail {json.dumps(out['detail'])}; gate "
+    print(f"[21/22] bench ({seconds['bench']:.1f} s): {json.dumps(headline)}; detail {json.dumps(out['detail'])}; gate "
           f"{json.dumps(gate)}; K1 / K2 in frame-graph replays {json.dumps(replays)}", flush=True)
-    print(f"[21/21] bench_full (subprocess, its launches counted in its own process): {json.dumps(full)}",
+    print(f"[21/22] bench_full (subprocess, its launches counted in its own process): {json.dumps(full)}",
           flush=True)
 
     t1 = time.perf_counter()
@@ -3723,7 +3821,7 @@ def run_benches() -> dict:
     ratio = loop["value"]
     if rc != 0 or ratio is None or not (math.isfinite(ratio) and ratio > 0) or not loop["detail"]["closures"]:
         problems.append(f"bench_loop: {json.dumps(loop)}")
-    print(f"[21/21] bench_loop ({seconds['bench_loop']:.1f} s): {json.dumps(loop)}", flush=True)
+    print(f"[21/22] bench_loop ({seconds['bench_loop']:.1f} s): {json.dumps(loop)}", flush=True)
 
     t1 = time.perf_counter()
     scaling, rc = _bench_call(bench_scaling, BENCH_SCALING_ARGS)
@@ -3739,7 +3837,7 @@ def run_benches() -> dict:
                  if not (d["m"] <= SCALING_POSE_TOL["pose_diff_m"] and d["deg"] <= SCALING_POSE_TOL["rot_diff_deg"])]
     if rc != 0:
         problems.append(f"bench_scaling: exit code {rc}")
-    print(f"[21/21] bench_scaling ({seconds['bench_scaling']:.1f} s): {json.dumps(scaling)}", flush=True)
+    print(f"[21/22] bench_scaling ({seconds['bench_scaling']:.1f} s): {json.dumps(scaling)}", flush=True)
 
     shards = [int(n) for n in scaling["seconds"] if n != "1"]
     for dtype in (torch.float64, torch.float32):
@@ -3749,17 +3847,334 @@ def run_benches() -> dict:
         tol = SHARDED_TOL[dtype]
         problems += [f"{name}, {n} slots: {json.dumps(r)} beyond {json.dumps(tol)}" for n, r in gaps.items()
                      if n != "reordered" and any(r[k] > lim for k, lim in tol.items())]
-        print(f"[21/21] the corridor C={CORRIDOR_C} P={CORRIDOR_P} in {dtype} with bench_scaling's settings "
+        print(f"[21/22] the corridor C={CORRIDOR_C} P={CORRIDOR_P} in {dtype} with bench_scaling's settings "
               f"({seconds[name]:.1f} s): each mesh size against the unsharded solve {json.dumps(gaps)}, "
               f"gated at {json.dumps(tol)} (the 'reordered' entry, the unsharded solve of the points in "
               f"another order, is the rounding floor and not gated)", flush=True)
 
     launches = {**_launches(), **{f"graph_{k}": v for k, v in tool_timing.graph_kernels.items()}}
-    print(f"[21/21] done in {time.perf_counter() - t0:.1f} s; seconds {json.dumps(seconds)}; launches "
+    print(f"[21/22] done in {time.perf_counter() - t0:.1f} s; seconds {json.dumps(seconds)}; launches "
           f"{json.dumps(launches)}", flush=True)
     if problems:
         raise AssertionError(f"phase 21: {problems}")
     return launches
+
+
+# ------------------------------------------------------------------ phase 22 --
+# the lens-distortion path, image noise, a forced weak frame and the one-slot
+# dry run
+TUM_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "tum_fr2.yaml")
+DIST_ATE_RATIO = 2.5      # tests/test_distorted_e2e.py:109
+DIST_ATE_PATH = 0.03
+DIST_MIN_MAPPOINTS = 300
+NOISE_FRAMES = 25         # tests/test_slam_e2e.py:172-194
+NOISE_SPEED = 0.35
+NOISE_SIGMA = 6.0         # grey levels
+NOISE_SEED = 42
+NOISE_MIN_TRACKED = 0.9
+NOISE_MAX_ATE = 0.08      # fraction of n × speed
+WEAK_FRAMES = 12
+WEAK_MIN_KEYFRAMES = 2    # keyframes before the forced weak frame
+WEAK_MAX_ERR_M = 0.05
+WEAK_POSE_TOL_M, WEAK_POSE_TOL_DEG = 1e-2, 0.1   # tests/test_torch_pipelined.py
+
+
+def _graph_ms(fn) -> float:
+    """Device ms of one replay of ``fn`` captured as a CUDA graph (eager,
+    its small kernels are host-bound)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        gc.enable()
+    return device_ms(graph.replay)
+
+
+def run_distorted() -> tuple:
+    """22a: ``configs/tum_fr2.yaml`` as shipped (its lens) on phase 8's
+    world: the pinhole frames through its intrinsics without the lens, and
+    the same frames warped into the lens (``warp_to_distorted``) through
+    the configuration itself, each a ``run_rgbd``.  22b: ``cli tum
+    --config configs/tum_fr2.yaml`` on a TUM layout of the warped frames.
+    Returns (launch counts of the three runs, summary)."""
+    from orb_slam2_ros2_tpu_torch.geometry.camera import CameraParams, undistort_points
+
+    cfg = SLAMConfig.from_yaml(TUM_YAML)
+    c = cfg.camera
+    if not (c.has_distortion and (c.width, c.height) == (640, 480) and cfg.orb.n_features == 2000
+            and cfg.tracking.th_depth == 40.0 and c.camera_type == 1):
+        raise AssertionError(f"{TUM_YAML} is not the shipped TUM fr2 configuration: {cfg}")
+    pin_cfg = cfg.replace(camera=dataclasses.replace(c, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
+    cam = CameraParams.from_config(c, "cuda")
+    t0 = time.perf_counter()
+    frames_pin = rgbd_frames(pin_cfg)
+    frames_dist = rgbd_frames(pin_cfg, warp_cam=cam)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    pin_rec, pin_launches, pin = run_rgbd(pin_cfg, frames_pin, tag="22/22] a pinhole")
+    dist_rec, dist_launches, dist = run_rgbd(cfg, frames_dist, tag="22/22] a distorted")
+    path = dist["path_len_m"]
+    bar = max(DIST_ATE_RATIO * pin["ate_m"], DIST_ATE_PATH * path)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    uv = torch.rand((cfg.orb.max_keypoints, 2), generator=gen, device="cuda")
+    uv = uv * torch.tensor([c.width - 1.0, c.height - 1.0], device="cuda")
+    out = dict(config="configs/tum_fr2.yaml", dist=[c.k1, c.k2, c.p1, c.p2, c.k3], render_and_warp_s=render_s,
+               ate_pinhole_m=pin["ate_m"], ate_distorted_m=dist["ate_m"], path_len_m=path,
+               ate_gate_m=bar, ate_phase8_gate_m=MAX_ATE_RGBD * path,
+               n_mappoints=dist["n_mappoints"], n_keyframes=[pin["n_keyframes"], dist["n_keyframes"]],
+               captures=[pin["frame_graph_captures"], dist["frame_graph_captures"]],
+               frame_ms_pinhole=dict(keyframe=_frame_ms(pin_rec, True), other=_frame_ms(pin_rec, False)),
+               frame_ms_distorted=dict(keyframe=_frame_ms(dist_rec, True), other=_frame_ms(dist_rec, False)),
+               replay_device_ms=dict(pinhole=pin["replay_device_ms"], distorted=dist["replay_device_ms"]),
+               undistort_graph_ms=_graph_ms(lambda: undistort_points(cam, uv)),
+               undistort_points_n=uv.shape[0],
+               uv_outside_image=dist["uv_outside_image"],
+               max_trans_err_m=[max(r["trans_err_m"] for r in pin_rec), max(r["trans_err_m"] for r in dist_rec)])
+    print(f"[22/22] a distorted RGB-D: {json.dumps(out)}", flush=True)
+    problems = []
+    if not dist["ate_m"] < bar:
+        problems.append(f"distorted ATE {dist['ate_m']:.4f} m ≥ max({DIST_ATE_RATIO} × pinhole "
+                        f"{pin['ate_m']:.4f}, {DIST_ATE_PATH} × {path:.3f}) m")
+    if not dist["n_mappoints"] > DIST_MIN_MAPPOINTS:
+        problems.append(f"{dist['n_mappoints']} map points ≤ {DIST_MIN_MAPPOINTS}")
+    if out["captures"] != [1, 1]:
+        problems.append(f"frame-graph captures {out['captures']}, want one a run")
+    if problems:
+        raise AssertionError(f"phase 22a: {problems}")
+
+    # b. the command TUM users run, on the warped frames written to disk
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_tum_layout(f"{tmp}/tum", pin_cfg, RGBD_FRAMES,
+                                warp=lambda img, depth: warp_to_distorted(cam, img, depth))
+        layout_s = time.perf_counter() - t0
+        args = ["--config", TUM_YAML]
+        res = run_cli(["tum", "--seq", f"{tmp}/tum", "--device", "cuda", "--out", f"{tmp}/t", *args])
+        _check_run("tum distorted", res, RGBD_FRAMES, SHELL_LOST, path, f"{tmp}/t", min_keyframes=2)
+    res.update(layout_write_s=layout_s, path_len_m=path)
+    print(f"[22/22] b cli tum --config configs/tum_fr2.yaml on the warped layout: {json.dumps(res)}", flush=True)
+    out["cli_tum"] = {k: res.get(k) for k in ("frames", "tracked", "keyframes", "ate_rmse", "fps", "captures")}
+    return [pin_launches, dist_launches, res["launches"]], out
+
+
+def run_noise(base: SLAMConfig) -> tuple:
+    """22c: ``tests/test_slam_e2e.py``'s noise scenario at the default
+    ``SLAMConfig()``: full SLAM over 25 frames of the default world at 0.35
+    m/frame, i.i.d. Gaussian noise of σ = 6 grey levels on both images,
+    drawn on the card from a seeded generator before each call.  Returns
+    (launch counts, summary)."""
+    ds = SyntheticStereoDataset(base.camera, n_frames=NOISE_FRAMES, speed=NOISE_SPEED, device="cuda")
+    frames = [ds.frame(i) for i in range(NOISE_FRAMES)]  # rendered on the card, set-up
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(NOISE_SEED)
+    slam = SLAM(base, device="cuda")
+    torch.cuda.synchronize()
+
+    _reset_launches()
+    records, est, gt = [], [], []
+    for i, (img_l, img_r, Twc_gt) in enumerate(frames):
+        noisy_l = img_l + NOISE_SIGMA * torch.randn(img_l.shape, generator=gen, device="cuda")
+        noisy_r = img_r + NOISE_SIGMA * torch.randn(img_r.shape, generator=gen, device="cuda")
+        # a tracked frame's program runs without host syncs
+        slam.frame_sync_debug_mode = "error" if i >= 2 and slam.state == TrackState.OK else None
+        pose, stats, ms = _track(slam, f"noise {i}", noisy_l, noisy_r, profile=i == PROFILED_CALL)
+        rec = dict(frame=i, ms=ms, profiled=i == PROFILED_CALL, state=slam.state.name,
+                   n_inliers=stats.get("n_inliers"), n_kf=slam._n_kf,
+                   trans_err_m=None if pose is None else _trans_err(pose, Twc_gt))
+        print(f"[22/22] c noise frame {i}: {json.dumps(rec)}", flush=True)
+        records.append(rec)
+        if pose is not None:
+            est.append(np.linalg.inv(pose.astype(np.float64)))
+            gt.append(Twc_gt)
+    slam.flush()
+    torch.cuda.synchronize()
+    slam.frame_sync_debug_mode = None
+    launches = _launches()
+    path = NOISE_FRAMES * NOISE_SPEED
+    ate = ate_rmse(est, gt) if est else float("inf")
+    out = dict(frames=NOISE_FRAMES, tracked=len(est), sigma=NOISE_SIGMA, ate_m=ate, path_m=path,
+               ate_gate_m=NOISE_MAX_ATE * path,
+               median_inliers=statistics.median(r["n_inliers"] for r in records[1:] if r["n_inliers"] is not None),
+               n_keyframes=slam.n_keyframes, n_mappoints=slam.n_mappoints,
+               frame_ms_median=statistics.median(r["ms"] for r in records[2:] if not r["profiled"]),
+               captures=_captures(slam))
+    print(f"[22/22] c image noise: {json.dumps(out)}", flush=True)
+    if len(est) < NOISE_MIN_TRACKED * NOISE_FRAMES:
+        raise AssertionError(f"phase 22c: tracked {len(est)} of {NOISE_FRAMES} noisy frames")
+    if not ate < NOISE_MAX_ATE * path:
+        raise AssertionError(f"phase 22c: noisy ATE {ate:.4f} m ≥ {NOISE_MAX_ATE} × {path:.2f} m")
+    return launches, out
+
+
+def _weak_run(cfg: SLAMConfig, frames, pipelined: bool, k=None) -> dict:
+    """Phase 6's world with frame ``k`` forced weak (a local-map match bar no
+    frame reaches, no keyframe) on the call that resolves it — call k
+    synchronous, k + 1 pipelined — so the reference-keyframe fallback
+    recovers it; the mapping tail inside each insertion, so nothing else
+    replaces the local map (``tests/test_torch_pipelined.py``).  Without
+    ``k`` the synchronous run takes the first frame ≥ 3 after
+    WEAK_MIN_KEYFRAMES keyframes.  The weak call is traced: each kernel once
+    a frame-program run, the pipelined re-dispatch one more run.  Records
+    every frame-program dispatch: (frame, local map in, local map out,
+    velocity in, replays, captures)."""
+    mode = "pipelined" if pipelined else "sync"
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pipelined=pipelined),
+                      mapping=dataclasses.replace(cfg.mapping, synchronous=True))
+    weak_cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, min_localmap_matches=10 ** 6))
+    slam = SLAM(cfg, enable_loop_closing=False, device="cuda")
+    dispatches = []
+    run_frame = slam._run_frame
+
+    def spy(img_l, img_r, last, velocity, local, wide):
+        r0, c0 = _graph_counts(slam)
+        out = run_frame(img_l, img_r, last, velocity, local, wide)
+        r1, c1 = _graph_counts(slam)
+        dispatches.append(dict(fid=slam.frame_id - 1, local_in=local, local_out=out[3], velocity=velocity,
+                               replays=r1 - r0, captures=c1 - c0))
+        return out
+
+    slam._run_frame = spy
+    need_keyframe = slam._need_keyframe
+    torch.cuda.synchronize()
+    _reset_launches()
+    weak_call, weak_stats, records = None if k is None else k + pipelined, None, []
+    for i, (img_l, img_r, _) in enumerate(frames):
+        if k is None and i >= 3 and slam._n_kf >= WEAK_MIN_KEYFRAMES:
+            k = weak_call = i
+        weak = i == weak_call
+        if weak and slam._n_kf < WEAK_MIN_KEYFRAMES:
+            raise AssertionError(f"phase 22d {mode}: {slam._n_kf} keyframes before the weak frame {k}")
+        slam.cfg = weak_cfg if weak else cfg
+        slam._need_keyframe = (lambda *a, **kw: False) if weak else need_keyframe
+        # the fallback reads its match counts back by design (outside the
+        # frame program); every other tracked frame runs without host syncs
+        slam.frame_sync_debug_mode = "error" if i >= 2 and not weak else None
+        pose, stats, ms = _track(slam, f"weak {mode} {i}", img_l, img_r, profile=weak)
+        fill = pipelined and stats.get("pipeline_fill")
+        if slam.state != TrackState.OK or (pose is None and not fill):
+            raise AssertionError(f"phase 22d {mode} frame {i}: state {slam.state}, stats {stats}")
+        if weak:
+            weak_stats = stats
+        rec = dict(frame=i, ms=ms, weak=weak, n_kf=slam._n_kf, n_inliers=stats.get("n_inliers"),
+                   n_localmap_matches=stats.get("n_localmap_matches"), ref_fallback=stats.get("ref_fallback", 0))
+        print(f"[22/22] d {mode} frame {i}: {json.dumps(rec)}", flush=True)
+        records.append(rec)
+    slam.cfg, slam._need_keyframe = cfg, need_keyframe
+    slam.flush()
+    torch.cuda.synchronize()
+    slam.frame_sync_debug_mode = None
+    return dict(slam=slam, k=k, weak_call=weak_call, weak_stats=weak_stats, records=records,
+                dispatches=dispatches, launches=_launches())
+
+
+def run_weak_frame(map_cfg: SLAMConfig) -> tuple:
+    """22d: a forced weak frame over phase 6's world, synchronous and
+    pipelined, on the graph.  Gates: the weak frame recovered by the
+    reference-keyframe fallback within WEAK_MAX_ERR_M of the truth, every
+    frame OK; pipelined, its successor re-dispatched as a replay with no
+    capture on the local map the weak frame was dispatched with (the
+    speculative dispatch on the weak frame's snapshot), and the trajectory
+    within the CPU test's tolerance of the synchronous one.  Returns
+    (launch counts of both runs, summary)."""
+    ds = SyntheticStereoDataset(map_cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
+                                box_scale=2.5, sky=True, device="cuda")
+    frames = [ds.frame(i) for i in range(WEAK_FRAMES)]  # rendered on the card, set-up
+    gt = {i: g for i, (_, _, g) in enumerate(frames)}
+    sync = _weak_run(map_cfg, frames, False)
+    k = sync["k"]
+    if k is None:
+        raise AssertionError(f"phase 22d: fewer than {WEAK_MIN_KEYFRAMES} keyframes in {WEAK_FRAMES} frames")
+    pipe = _weak_run(map_cfg, frames, True, k)
+    out, problems = dict(weak_frame=k), []
+    for mode, run in (("sync", sync), ("pipelined", pipe)):
+        slam, st = run["slam"], run["weak_stats"]
+        traj = dict(slam.trajectory)
+        recoveries = sum(r["ref_fallback"] for r in run["records"])
+        err = _trans_err(traj[k], gt[k]) if k in traj else float("inf")
+        d_k = [d for d in run["dispatches"] if d["fid"] == k]
+        d_next = [d for d in run["dispatches"] if d["fid"] == k + 1]
+        out[mode] = dict(weak_call=run["weak_call"], ref_fallback=st.get("ref_fallback"),
+                         weak_frame_recoveries=recoveries, n_inliers=st.get("n_inliers"),
+                         trans_err_m=err, frames_in_trajectory=len(traj), n_keyframes=slam.n_keyframes,
+                         dispatches_of_next=[dict(replays=d["replays"], captures=d["captures"]) for d in d_next],
+                         captures=_captures(slam), launches=run["launches"])
+        if st.get("ref_fallback") != 1 or recoveries < 1:
+            problems.append(f"{mode}: frame {k} was not recovered by the fallback: {st}")
+        if not err <= WEAK_MAX_ERR_M:
+            problems.append(f"{mode}: frame {k} {err:.4f} m from the truth")
+        if sorted(traj) != list(range(WEAK_FRAMES)):
+            problems.append(f"{mode}: trajectory holds frames {sorted(traj)}")
+        if not d_k or not d_next:
+            problems.append(f"{mode}: no dispatch of frame {k} or {k + 1}")
+            continue
+        if mode == "sync":
+            if d_next[0]["local_in"] is not d_k[-1]["local_in"]:
+                problems.append("sync: frame k + 1 was not tracked against frame k's local map")
+        else:
+            spec, redo = d_next[0], d_next[-1]
+            if len(d_next) != 2:
+                problems.append(f"pipelined: frame {k + 1} dispatched {len(d_next)} times, want 2")
+            if spec["local_in"] is not d_k[-1]["local_out"]:
+                problems.append("pipelined: the speculative dispatch was not on the weak frame's snapshot")
+            if redo["local_in"] is not d_k[-1]["local_in"]:
+                problems.append("pipelined: the re-dispatch did not take the weak frame's dispatch local map")
+            if (redo["replays"], redo["captures"]) != (1, 0):
+                problems.append(f"pipelined: the re-dispatch ran {redo['replays']} replay(s), "
+                                f"{redo['captures']} capture(s), want one replay")
+    Ts, Tp = (torch.from_numpy(np.stack([T for _, T in sorted(r["slam"].trajectory)])) for r in (sync, pipe))
+    gap_m, gap_deg = _pose_diff(Ts, Tp)
+    out["pipelined_vs_sync"] = dict(max_m=gap_m, max_deg=gap_deg)
+    if gap_m > WEAK_POSE_TOL_M or gap_deg > WEAK_POSE_TOL_DEG:
+        problems.append(f"pipelined poses left the synchronous ones by {gap_m:.4f} m, {gap_deg:.4f}°")
+    print(f"[22/22] d forced weak frame: {json.dumps(out, default=str)}", flush=True)
+    if problems:
+        raise AssertionError(f"phase 22d: {problems}")
+    return [sync["launches"], pipe["launches"]], out
+
+
+def run_dryrun_one() -> dict:
+    """22e: ``entry.dryrun_multichip(1)`` with no devices named, what JAX's
+    entry calls on a one-chip machine: it must run on the card."""
+    from orb_slam2_ros2_tpu_torch import entry
+    from orb_slam2_ros2_tpu_torch.parallel.mesh import local_devices
+
+    devs = [str(d) for d in local_devices()]
+    out = entry.dryrun_multichip(1)
+    res = dict(local_devices=devs, **{k: out[k] for k in ("device", "gba_ms", "gba_1shard_ms", "gba_pose_diff_m",
+                                                           "pg_ms", "pg_1shard_ms", "pg_diff")})
+    print(f"[22/22] e dryrun_multichip(1): {json.dumps(res)}", flush=True)
+    if not res["device"].startswith("cuda") or not all(d.startswith("cuda") for d in devs):
+        raise AssertionError(f"phase 22e: the dry run chose {res['device']}, local devices {devs}")
+    return res
+
+
+def run_phase22(base: SLAMConfig, map_cfg: SLAMConfig) -> list:
+    """Phase 22: the lens-distortion path (a, b), image noise (c), a forced
+    weak frame synchronous and pipelined (d) and the one-slot dry run (e).
+    Returns the launch counts of its runs."""
+    t0 = time.perf_counter()
+    dist_launches, dist = run_distorted()
+    noise_launches, noise = run_noise(base)
+    weak_launches, weak = run_weak_frame(map_cfg)
+    dry = run_dryrun_one()
+    runs = [*dist_launches, noise_launches, *weak_launches]
+    summary = dict(seconds=time.perf_counter() - t0,
+                   a=dict(ate_pinhole_m=dist["ate_pinhole_m"], ate_distorted_m=dist["ate_distorted_m"],
+                          frame_ms_pinhole=dist["frame_ms_pinhole"], frame_ms_distorted=dist["frame_ms_distorted"],
+                          replay_device_ms=dist["replay_device_ms"],
+                          undistort_graph_ms=dist["undistort_graph_ms"]),
+                   b=dist["cli_tum"], c=dict(tracked=noise["tracked"], ate_m=noise["ate_m"],
+                                             median_inliers=noise["median_inliers"]),
+                   d=dict(weak_frame=weak["weak_frame"], pipelined_vs_sync=weak["pipelined_vs_sync"]),
+                   e=dict(device=dry["device"]),
+                   launches={n: sum(x[n] for x in runs) for n in ("fast_nms", "patches", "replays")})
+    print(f"[22/22] distortion, noise, weak frame, dry run: {json.dumps(summary)}", flush=True)
+    return runs
 
 
 def _frame_ms(records, keyframe=None):
@@ -3774,12 +4189,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = gpu_line()
-    print(f"[1/21] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1/22] device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2/21] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
+    print(f"[2/22] build: {build_s:.3f} s total, nvcc {json.dumps(_build.build_seconds)}", flush=True)
     for name in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{name}.ptxas.log"
         if log.exists():
@@ -3795,21 +4210,21 @@ def main() -> int:
 
     levels, k1_canvas, k1_table = k1_inputs(cfg, gen)
     k1_err = k1_check(levels, k1_canvas, k1_table)
-    print(f"[3/21] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
+    print(f"[3/22] fast_nms: one launch over the canvas {tuple(k1_canvas.shape)} and one per "
           f"level, bit-equal to nms3(fast_score) on {len(levels)} levels "
           f"{[tuple(x.shape) for x in levels]}, nms on and off", flush=True)
     canvas, centers = k2_inputs(cfg, gen)
     k2_err = k2_check(canvas, centers)
-    print(f"[4/21] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
+    print(f"[4/22] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
 
     records, launches, med = run_slice(cfg)
-    print(f"[5/21] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
+    print(f"[5/22] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
           f"max trans err {max(r['trans_err_m'] for r in records):.4f} m, launches {launches}",
           flush=True)
     map_records, map_launches, summary, map_slam, map_frames = run_mapping(map_cfg)
     map_summary = summary
-    print(f"[6/21] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
+    print(f"[6/22] mapping: {MAP_FRAMES} frames OK, {summary['new_keyframes']} keyframes after "
           f"keyframe 0, {summary['local_ba_runs']} local BAs, ATE live {summary['ate_live_m']:.4f} m "
           f"final {summary['ate_final_m']:.4f} m on a {summary['path_len_m']:.2f} m path, "
           f"launches {map_launches}", flush=True)
@@ -3819,7 +4234,7 @@ def main() -> int:
     reloc_cfg = map_cfg.replace(tracking=dataclasses.replace(map_cfg.tracking, only_tracking=True))
     with _RelocCalls("7") as reloc7:
         reloc_records, reloc_launches, reloc = run_relocalization(map_slam, reloc_cfg, map_frames)
-    print(f"[7/21] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
+    print(f"[7/22] relocalization: {json.dumps(reloc)}, launches {reloc_launches}", flush=True)
     del map_slam, map_frames
 
     rgbd_cfg = rgbd_config(base)
@@ -3827,16 +4242,16 @@ def main() -> int:
     k1_err = max(k1_err, k1_check(r_levels, r_canvas, r_table))
     r2_canvas, r2_centers = k2_inputs(rgbd_cfg, gen, batch=1)
     k2_err = max(k2_err, k2_check(r2_canvas, r2_centers))
-    print(f"[8/21] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
+    print(f"[8/22] RGB-D kernels: fast_nms bit-equal on the one-image canvas {tuple(r_canvas.shape)} "
           f"(one launch, and per level, nms on and off), patches bit-equal with "
           f"{r2_centers.shape[0]} centres", flush=True)
     rgbd_records, rgbd_launches, rgbd = run_rgbd(rgbd_cfg)
-    print(f"[8/21] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
+    print(f"[8/22] RGB-D: {RGBD_FRAMES} frames OK, {json.dumps(rgbd)}, launches {rgbd_launches}",
           flush=True)
 
     with _EssentialCalls() as spied, _GBACalls() as gba9, _LoopCalls() as loop9:
         _, loop_launches, loop = run_loop(base)
-    print(f"[9/21] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
+    print(f"[9/22] loop closing: {loop['frames']} frames OK, closure at frame {loop['closure_frame']} "
           f"(edges {loop['loop_edges']}), GBA committed at frame {loop['commit_frame']}, ATE live "
           f"{loop['ate_live_m']:.4f} m final {loop['ate_final_m']:.4f} m on a {loop['path_len_m']:.2f} m "
           f"path, median frame {loop['median_frame_ms']:.1f} ms, spike ratio {loop['spike_ratio']}, "
@@ -3856,7 +4271,7 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
-    print(f"[10/21] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
+    print(f"[10/22] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
           f"{_frame_ms(map_records, False):.3f} | keyframe-program spans "
@@ -3867,7 +4282,7 @@ def main() -> int:
     r2_out = torch.empty((r2_centers.shape[0], patches.PATCH_ROWS, patches.PATCH_COLS),
                          dtype=torch.float32, device="cuda")
     k2_rgbd_ms = device_ms(lambda: patches.extract_patches_48x64(r2_canvas, r2_centers, out=r2_out))
-    print(f"[10/21] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
+    print(f"[10/22] relocalization ms: save {reloc['save_ms']:.1f}, load (with rebuild) "
           f"{reloc['load_ms']:.1f}, rebuild alone {reloc['rebuild_ms']:.1f} "
           f"({reloc['kf_capacity']} slots, {reloc['n_words']} words), relocalizing frames "
           f"{[round(x, 1) for x in reloc['reloc_ms']]}, LOST frames "
@@ -3876,23 +4291,23 @@ def main() -> int:
           f"{_frame_ms(rgbd_records, True):.3f}, other median {_frame_ms(rgbd_records, False):.3f} | "
           f"device ms on the RGB-D canvas: fast_nms {k1_rgbd_ms:.5f} (bound "
           f"{k1_bound_ms(r_table)[0] * 1e3:.3f} us), patches {k2_rgbd_ms:.5f}", flush=True)
-    print(f"[10/21] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
+    print(f"[10/22] device ms per call ({TIMED_RUNS} back-to-back): fast_nms (8 levels x 2 images, "
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
           f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
-    print(f"[11/21] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
+    print(f"[11/22] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
           f"local maps, map), {pair['captures']} capture; frame ms median eager "
           f"{pair['eager_ms_median']:.3f} graph {pair['graph_ms_median']:.3f}; one frame profiled: "
           f"{json.dumps(pair['profile'])}, launches {pair_launches}", flush=True)
     (eager_map_launches, pipe_launches), pipe = run_pipelined_vs_sync(map_cfg, map_summary, map_records)
-    print(f"[11/21] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
+    print(f"[11/22] mapping eager / graph / pipelined: {json.dumps(pipe)}, launches eager "
           f"{eager_map_launches} pipelined {pipe_launches}", flush=True)
     _, pipe_loop_launches, pipe_loop = run_loop(
-        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/21")
-    print(f"[11/21] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
+        base.replace(tracking=dataclasses.replace(base.tracking, pipelined=True)), tag="11/22")
+    print(f"[11/22] loop closing pipelined: {pipe_loop['frames']} frames in order, closure at call "
           f"{pipe_loop['closure_frame']} (edges {pipe_loop['loop_edges']}), GBA committed at call "
           f"{pipe_loop['commit_frame']}, ATE live {pipe_loop['ate_live_m']:.4f} m final "
           f"{pipe_loop['ate_final_m']:.4f} m on {pipe_loop['path_len_m']:.2f} m, {pipe_loop['n_keyframes']} "
@@ -3903,25 +4318,25 @@ def main() -> int:
         raise AssertionError(f"loop world: pipelined {pipe_loop['n_keyframes']} keyframes, "
                              f"sync {loop['n_keyframes']}")
     blackout_launches, blackout = run_pipelined_blackout(map_cfg)
-    print(f"[11/21] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
-    print(f"[11/21] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
+    print(f"[11/22] pipelined blackout: {json.dumps(blackout)}, launches {blackout_launches}", flush=True)
+    print(f"[11/22] relocalization (batched cascade) profiled: {json.dumps(reloc['reloc_profile'])}; "
           f"relocalizing frames {[round(x, 1) for x in reloc['reloc_ms']]} ms, inliers "
           f"{[r['n_inliers'] for r in reloc_records if r['kind'] == 'reloc']}, errors "
           f"{[round(r['trans_err_m'], 4) for r in reloc_records if r['kind'] == 'reloc']} m", flush=True)
 
     probe = probe_shell()
-    print(f"[12/21] probe: {json.dumps(probe)}", flush=True)
+    print(f"[12/22] probe: {json.dumps(probe)}", flush=True)
     shell_launches, shell = run_shell(base, probe)
     ran = [p for p in shell if p["ran"]]
     summary = {p["part"]: {k: p.get(k) for k in ("tracked", "frame_ms_median", "frame_ms_p90", "fps",
                                                   "save_ms", "load_ms", "saved_bytes", "decoded")}
                for p in ran}
-    print(f"[12/21] shell: {len(ran)} parts passed, not run: "
+    print(f"[12/22] shell: {len(ran)} parts passed, not run: "
           f"{[p['part'] + ' (' + p['why'] + ')' for p in shell if not p['ran']]}; {json.dumps(summary)}",
           flush=True)
 
     multi_launches, multi = run_multi_device(base, map_cfg, loop, map_summary, map_poses)
-    print(f"[13/21] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13/22] multi-device done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     long_launches, scale, reloc14 = run_long(base)
     remaining_launches = run_remaining(base, map_cfg, gen)
@@ -3933,11 +4348,13 @@ def main() -> int:
     del multi
     tool_launches = run_tools()
     bench_launches = run_benches()
+    phase22_launches = run_phase22(base, map_cfg)
 
     runs_launches = (launches, map_launches, reloc_launches, rgbd_launches, loop_launches,
                      pair_launches, eager_map_launches, pipe_launches, pipe_loop_launches,
                      blackout_launches, *shell_launches, *multi_launches, *long_launches,
-                     *remaining_launches, *graph_launches, *mesh_launches, tool_launches, bench_launches)
+                     *remaining_launches, *graph_launches, *mesh_launches, tool_launches, bench_launches,
+                     *phase22_launches)
     # launches: the wrappers' own (eager frames, first frames of graphs,
     # frontends of frames without a frame program) plus one a replay of a
     # frame graph — every run that replays had one of its replays traced by

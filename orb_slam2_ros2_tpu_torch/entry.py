@@ -17,7 +17,10 @@ with ``device="cpu"`` it is the eager frame program.
 mesh: the landmark-sharded global BA (C=256 cameras, P=12,500·n landmarks,
 O=4) and the edge-sharded essential-graph PCG (K=512 vertices), each
 against its one-shard solve, and the tracker/mapper split tracking real
-frames.  ``devices=["cuda:0", "cuda:0"]`` puts two shards on one card.
+frames, on the visible cards unless ``devices`` names the slots:
+``devices=["cuda:0", "cuda:0"]`` puts two shards on one card and
+``devices=["cpu"] * n`` runs on the CPU; without a card and without
+``devices`` it raises.
 ``run_ranks`` solves the same problems over processes joined by
 ``torch.distributed`` (``init_distributed`` through the ``SLAM_*``
 variables), one shard a process.
@@ -45,7 +48,7 @@ from .config import (
 from .geometry import se3, sim3
 from .geometry.camera import CameraParams, project
 from .io.synthetic import SyntheticStereoDataset
-from .parallel.mesh import ba_mesh, init_distributed
+from .parallel.mesh import Mesh, ba_mesh, init_distributed, local_devices
 from .pipeline.system import SLAM
 from .solvers.pcg_ba import PointBAProblem, solve_global_ba, solve_global_ba_sharded
 from .solvers.pose_graph import PoseGraphProblem, make_relative_measurements, optimize_pose_graph
@@ -281,7 +284,8 @@ SPLIT_FRAMES = 12
 
 def dryrun_multichip(n_devices: int, devices=None) -> dict:
     """Run the three multi-device paths over the first ``n_devices`` slots
-    of ``devices`` (every visible card, or the CPU, when None):
+    of ``devices`` (every visible card when None, ``n_devices=1`` too; it
+    raises without a card unless ``devices`` names the CPU's slots):
 
     1. the landmark-sharded global BA, C=256 cameras, P=12,500·n
        landmarks, O=4, against the one-shard solve of the same problem;
@@ -291,14 +295,17 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
        the second device: on a card the tracker program and the
        bookkeeping replay CUDA graphs, as the keyframe programs do.
 
-    Prints one ``dryrun i/3`` line each and returns the timings (ms, CUDA
-    events on a card), the peak device memory, the largest differences
+    Prints one ``dryrun i/3`` line each and returns the device the solves
+    ran on, the timings (ms, CUDA events on a card), the peak device memory, the largest differences
     between the sharded and one-shard results and the split's map-side
     graph captures and replays (the wrappers' calls on the CPU)."""
-    mesh = ba_mesh(n_devices, devices=devices)
-    dev = mesh.device if mesh is not None else torch.device(devices[0] if devices else "cpu")
+    # one slot is a mesh of one device, as JAX's dry run makes it (ba_mesh
+    # gives None there, where the SLAM takes its unsharded paths)
+    mesh = (ba_mesh(n_devices, devices=devices) if n_devices > 1
+            else Mesh(axis="ba", slots=((0, local_devices(devices)[0]),)))
+    dev = mesh.device
     on_card = dev.type == "cuda"
-    out = {}
+    out = {"device": str(dev)}
     C, P, K = 256, 12500 * n_devices, 512
     cam, prob = gba_problem(C, P, device=dev)
     (Tn, pn, gn), ms_n, peak_n = _timed(lambda: solve_global_ba_sharded(cam, prob, mesh, **GBA_KW), dev)

@@ -72,12 +72,14 @@ def _world() -> Tuple[int, int]:
 
 def local_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
     """This process's devices: ``devices`` when given, else every visible
-    CUDA device, or the CPU without a card."""
+    CUDA device.  Without a card and without ``devices`` it raises: a run
+    on the CPU names its slots (``devices=["cpu", ...]``)."""
     if devices is not None:
         return [torch.device(d) for d in devices]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; to run on the CPU pass its slots, "
+                           "devices=[\"cpu\", ...]")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def default_devices(device, n: int) -> List[torch.device]:
@@ -213,7 +215,8 @@ def ba_mesh(n_devices: Optional[int] = None, axis: str = "ba",
     devices (``devices`` replaces this process's list, as the virtual
     devices of the JAX tests do); None for one device, where the solvers
     take their unsharded paths.  Fewer slots than asked make a smaller
-    mesh, as JAX's ``devs[:n]``."""
+    mesh, as JAX's ``devs[:n]``.  Without a card ``devices`` is required
+    (``local_devices``)."""
     slots = _global_slots(devices)
     n = n_devices or len(slots)
     if n <= 1:

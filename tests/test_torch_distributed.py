@@ -15,7 +15,10 @@
   / 5e-3°, points 5e-3 m): the unsharded system solves the 16-keyframe
   essential graph by the dense Cholesky, the sharded one by the PCG.
 * A ``SLAM`` with ``n_devices=2`` maps a synthetic sequence.
-* ``entry.dryrun_multichip(2)`` over two CPU slots.
+* ``entry.dryrun_multichip(2)`` over two CPU slots, and ``(1)`` over one.
+* No quiet CPU default: without a card ``local_devices()``,
+  ``device_count()``, ``ba_mesh()`` and ``dryrun_multichip()`` raise unless
+  given their devices, and run on named CPU slots as before.
 * Two processes joined over gloo through ``init_distributed`` and the
   ``SLAM_*`` variables (``entry.run_ranks``, ``torch.multiprocessing``
   spawn) solve the dry run's pose graph and global BA, one shard each; each
@@ -25,6 +28,7 @@
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 from test_torch_loop_closing import assert_maps_agree
 from test_torch_loop_slice import KF_CAND, KF_CUR, POINT_M, POSE_DEG, POSE_M, setup_slams
@@ -163,3 +167,52 @@ def test_dryrun_multichip_2(capsys):
     assert out["gba_pose_diff_m"] <= 1e-4 and out["gba_rot_diff_deg"] <= 1e-3
     assert out["gba_point_excess_m"] <= 0 and out["gba_gate_diff"] <= 2 and out["pg_diff"] <= 2e-3
     assert out["split_keyframes"] >= 2 and out["gba_ms"] > 0 and out["pg_ms"] > 0
+
+
+# ------------------------------------------------- no quiet CPU default --
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_mesh_helpers_need_devices_without_a_card(monkeypatch):
+    """Without a card, ``local_devices()``, ``device_count()`` and
+    ``ba_mesh(2)`` raise unless the caller names its slots; named CPU slots
+    run as before, and a CPU ``SLAM`` still spreads over CPU slots
+    (``default_devices``: the caller asked for the CPU)."""
+    from test_torch_split_mode import split_cfg
+
+    from orb_slam2_ros2_tpu_torch.parallel import mesh as tmesh
+
+    _no_card(monkeypatch)
+    for call in (tmesh.local_devices, tmesh.device_count, lambda: ba_mesh(2), lambda: ba_mesh(1)):
+        with pytest.raises(RuntimeError, match=r'devices=\["cpu"'):
+            call()
+    assert tmesh.local_devices(["cpu"] * 2) == [torch.device("cpu")] * 2
+    assert tmesh.device_count(["cpu"] * 3) == 3
+    m = ba_mesh(2, devices=MESH_SLOTS)
+    assert m.size == 2 and m.device == torch.device("cpu")
+    assert tmesh.default_devices("cpu", 2) == [torch.device("cpu")] * 2
+    slam = tsys.SLAM(split_cfg(False, n_devices=2), device="cpu")
+    assert slam.mesh.size == 2 and slam.mesh.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_dryrun_multichip_needs_devices_without_a_card(monkeypatch, n):
+    """``dryrun_multichip(n)`` runs on the visible cards and raises without
+    one, ``n = 1`` too (it ran on the CPU before)."""
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match=r'devices=\["cpu"'):
+        entry.dryrun_multichip(n)
+
+
+def test_dryrun_multichip_1(capsys):
+    """``entry.dryrun_multichip(1)`` on one CPU slot, what JAX's entry calls
+    on a one-chip machine: the sharded solves over a mesh of one device
+    (JAX's ``Mesh(devs[:1])``) equal the one-shard solves, and no split
+    runs."""
+    out = entry.dryrun_multichip(1, devices=["cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("dryrun")]
+    assert [ln[:11] for ln in lines] == ["dryrun 1/3:", "dryrun 2/3:"]
+    assert out["device"] == "cpu" and "split_keyframes" not in out
+    assert out["gba_pose_diff_m"] == 0 and out["gba_gate_diff"] == 0 and out["pg_diff"] == 0

@@ -33,7 +33,7 @@ def test_init_distributed_needs_every_variable(monkeypatch):
 
 @pytest.mark.parametrize("n", [2, 8])
 def test_ba_mesh_shapes(n):
-    assert tmesh.ba_mesh(1) is None and jax_ba_mesh(1) is None
+    assert tmesh.ba_mesh(1, devices=["cpu"]) is None and jax_ba_mesh(1) is None
     m = tmesh.ba_mesh(n, devices=["cpu"] * 8)
     assert m.shape["ba"] == jax_ba_mesh(n).shape["ba"] == n
     assert m.local == list(range(n)) and m.device == torch.device("cpu")
