@@ -199,9 +199,10 @@ Phases (one line each; any failure raises and exits non-zero):
      ``train_corpus_vocab.main`` at the full image size on 4 frame pairs of
      each of its five worlds with the tree cut to depth 2, K1 over the
      four-image table and one batch's descriptors held to the plain twins;
-     (e) ``SLAM.profile`` over phase 6's first 10 frames: ``stage_times``
-     holds ``frontend``, ``track``, ``map_front`` and ``map_tail`` with a
-     positive time each run.
+     (e) the system's tracer (``SLAM.time_programs``) over phase 6's first
+     10 frames: host spans ``frontend``, ``dispatch``, ``map_front`` and
+     ``map_tail`` and device spans of every frame-graph replay and keyframe
+     front, each of positive length.
  16. keyframe and closure graphs (every phase above already runs the
      keyframe programs and the single-process essential graph as CUDA
      graphs): (a) phase 6's mapping world with every keyframe program that
@@ -2498,14 +2499,18 @@ def run_corpus(base: SLAMConfig):
 
 
 def run_profiled(map_cfg: SLAMConfig):
-    """15e: ``SLAM.profile`` over phase 6's first PROFILE_FRAMES frames:
-    every stage that ran holds its positive seconds (call PROFILED_CALL is
-    traced, and its stage time with it)."""
+    """15e: the system's tracer (``SLAM.time_programs``) over phase 6's
+    first PROFILE_FRAMES frames: each stage that ran is a host span of
+    positive length (``frontend`` on the first frame, ``dispatch`` on each
+    later one, ``map_front`` a keyframe, ``map_tail`` at least once), and
+    each frame-graph replay and keyframe front a device span of positive
+    length (call PROFILED_CALL is traced by the profiler, its spans with
+    it)."""
     ds = SyntheticStereoDataset(map_cfg.camera, n_frames=MAP_FRAMES + 2, speed=MAP_SPEED,
                                 box_scale=2.5, sky=True, device="cuda")
     frames = [ds.frame(i) for i in range(PROFILE_FRAMES)]   # rendered on the card, set-up
     slam = SLAM(map_cfg, enable_loop_closing=False, device="cuda")
-    slam.profile = True
+    slam.time_programs = True
     torch.cuda.synchronize()
     _reset_launches()
     for i, (l, r, _) in enumerate(frames):
@@ -2513,18 +2518,27 @@ def run_profiled(map_cfg: SLAMConfig):
         if slam.state != TrackState.OK or pose is None:
             raise AssertionError(f"15e: frame {i}: {slam.state} {stats}")
     slam.flush()
+    torch.cuda.synchronize()
     launches = _launches()
-    st = slam.stage_times
+    trace = slam.trace_export()
+    host, device = {}, {}
+    for name, t0, t1, *_ in trace["host"]:
+        host.setdefault(name, []).append((t1 - t0) / 1e6)
+    for name, t0, t1 in trace["device"]:
+        device.setdefault(name, []).append((t1 - t0) / 1e6)
     new_kf = slam._n_kf - 1
-    want = {"frontend": 1, "track": PROFILE_FRAMES - 1, "map_front": new_kf}
-    counts = {k: len(v) for k, v in st.items()}
+    counts = {k: len(v) for k, v in host.items()}
+    replays = trace["counters"].get("replays.frame", 0)
+    want = {"track": PROFILE_FRAMES, "frontend": 1, "dispatch": PROFILE_FRAMES - 1, "map_front": new_kf}
     if (any(counts.get(k) != n for k, n in want.items()) or not 1 <= counts.get("map_tail", 0) <= new_kf
-            or set(counts) != {"frontend", "track", "map_front", "map_tail"}
-            or not all(t > 0 for ts in st.values() for t in ts)):
-        raise AssertionError(f"15e: stage_times {counts} for {new_kf} keyframes after keyframe 0: "
-                             f"{json.dumps(st)}")
-    summary = {k: dict(n=len(v), median_ms=statistics.median(v) * 1e3, max_ms=max(v) * 1e3) for k, v in st.items()}
-    print(f"[15/22] e. profile over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
+            or not 1 <= replays == len(device.get("frame_graph", ())) or len(device.get("map_front", ())) != new_kf
+            or not all(t > 0 for ms in (*host.values(), *device.values()) for t in ms)):
+        raise AssertionError(f"15e: host spans {counts}, device spans "
+                             f"{ {k: len(v) for k, v in device.items()} }, {replays} frame replays, for {new_kf} "
+                             f"keyframes after keyframe 0")
+    summary = {f"{side}:{k}": dict(n=len(v), median_ms=statistics.median(v), max_ms=max(v))
+               for side, spans in (("host", host), ("device", device)) for k, v in spans.items()}
+    print(f"[15/22] e. tracer over {PROFILE_FRAMES} frames ({new_kf} keyframes after keyframe 0): "
           f"{json.dumps(summary)}, launches {launches}", flush=True)
     return launches, summary
 

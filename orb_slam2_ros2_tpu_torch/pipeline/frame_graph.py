@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -59,6 +60,7 @@ import torch
 
 from ..mapstate.map_state import MapState, copy_into
 from ..solvers import local_ba
+from .trace import Tracer
 
 
 def tree_leaves(x) -> list:
@@ -122,13 +124,25 @@ class StepGraph:
     program must not read the host, and whatever it reads besides its
     inputs (constants, kernel tables) must outlive the graph.  A failing
     capture raises.  ``capture=False`` calls the program on the static
-    inputs in place of the replay (the CPU tests)."""
+    inputs in place of the replay (the CPU tests).
+
+    ``traced(tracer, graph)`` names the step's graph to a ``Tracer``: a
+    first call that captures is a host span ``capture.<graph>``, a replay
+    (its copy-in, the graph and the clone-out, no host read) a device span
+    ``<graph>_graph`` around a host span ``graph_launch`` (the graph's
+    launch), and both are counted."""
 
     def __init__(self, program: Callable, *, capture: bool = True):
         self.program = program
         self.capture = capture
         self._graphs: Dict[tuple, _Step] = {}
         self.replays = 0
+        self.tracer: Optional[Tracer] = None
+        self.graph = "step"
+
+    def traced(self, tracer: Optional[Tracer], graph: str) -> "StepGraph":
+        self.tracer, self.graph = tracer, graph
+        return self
 
     @property
     def captures(self) -> int:
@@ -140,9 +154,18 @@ class StepGraph:
         g = self._graphs.get(key)
         if g is None:
             return self._first(key, args, fixed)
+        tr = self.tracer
+        if tr is None:
+            return self._replay(g, leaves, fixed)
+        tr.count(f"replays.{self.graph}")
+        with tr.device_span(f"{self.graph}_graph"):
+            return self._replay(g, leaves, fixed, tr)
+
+    def _replay(self, g: _Step, leaves: list, fixed: tuple, tr: Optional[Tracer] = None):
         torch._foreach_copy_(g.in_leaves, leaves)
         if g.graph is not None:
-            g.graph.replay()
+            with tr.span("graph_launch") if tr is not None else contextlib.nullcontext():
+                g.graph.replay()
             outputs = g.outputs
         else:
             outputs = self.program(*g.inputs, *fixed)
@@ -154,18 +177,22 @@ class StepGraph:
         if not self.capture:
             self._graphs[key] = _Step(None, statics, tree_leaves(statics), None)
             return self(*args, fixed=fixed)
-        dev = tree_leaves(args)[0].device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            result = self.program(*statics, *fixed)
-        main.wait_stream(side)
-        for t in tree_leaves(result):
-            t.record_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        with _capturing(), torch.cuda.graph(graph):
-            outputs = self.program(*statics, *fixed)
+        tr = self.tracer
+        if tr is not None:
+            tr.count(f"captures.{self.graph}")
+        with tr.span(f"capture.{self.graph}") if tr is not None else contextlib.nullcontext():
+            dev = tree_leaves(args)[0].device
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                result = self.program(*statics, *fixed)
+            main.wait_stream(side)
+            for t in tree_leaves(result):
+                t.record_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with _capturing(), torch.cuda.graph(graph):
+                outputs = self.program(*statics, *fixed)
         self._graphs[key] = _Step(graph, statics, tree_leaves(statics), outputs)
         return result
 
@@ -181,11 +208,13 @@ class FrameGraphs:
     its map, or the split's tracker program, whose ``mapstate`` is the
     published map view); ``mapstate`` is storage at fixed addresses.
     ``run`` takes the same arguments (``ref_kf`` a host int) and returns
-    the program's outputs, tensors the caller owns."""
+    the program's outputs, tensors the caller owns.  ``tracer`` names its
+    steps' graph ``frame`` (``StepGraph.traced``)."""
 
     def __init__(self, program: Callable, *, capture: bool = True):
         self.program = program
         self.capture = capture
+        self.tracer: Optional[Tracer] = None
         self._steps: Dict[float, tuple] = {}   # proj_th -> (StepGraph, map storage pointers)
         self.replays = 0
         self.capture_log: list = []   # (proj_th, image shapes) of each capture
@@ -207,7 +236,8 @@ class FrameGraphs:
             def frame(img_l, img_r, last, velocity, local, ref_kf, mapstate):
                 return program(img_l, img_r, last, velocity, local, mapstate, ref_kf, proj_th=proj_th)
 
-            entry = self._steps[proj_th] = (StepGraph(frame, capture=self.capture), map_ptrs)
+            entry = self._steps[proj_th] = (StepGraph(frame, capture=self.capture).traced(self.tracer, "frame"),
+                                            map_ptrs)
         if entry[1] != map_ptrs:
             raise RuntimeError("the map storage moved under a captured frame graph")
         return entry[0]
@@ -276,12 +306,14 @@ class KeyframeGraphs:
     program writes the fields it changed into the storage, inside the graph
     (JAX donates the map), and returns only its small outputs, so no replay
     clones a whole map.  ``copied_bytes`` counts the bytes written into the
-    storage.  A storage of other shapes needs ``clear()`` first."""
+    storage.  A storage of other shapes needs ``clear()`` first.  ``tracer``
+    names the steps' graph ``keyframe``."""
 
     def __init__(self, front: Callable, tail: Callable, cull: Callable, bookkeep: Callable, *,
                  capture: bool = True):
         self._front, self._tail, self._cull, self._bookkeep = front, tail, cull, bookkeep
         self.capture = capture
+        self.tracer: Optional[Tracer] = None
         self._steps: Dict[object, StepGraph] = {}
         self._map_ptrs: Optional[tuple] = None
         self._bytes: Dict[object, int] = {}   # bytes each program writes into the storage
@@ -304,7 +336,8 @@ class KeyframeGraphs:
         self._map_ptrs = held_addresses(self._map_ptrs, mapstate, "the map storage", "keyframe graph")
         step = self._steps.get(key)
         if step is None:
-            step = self._steps[key] = StepGraph(donating(program, self._bytes, key), capture=self.capture)
+            step = self._steps[key] = StepGraph(donating(program, self._bytes, key),
+                                                capture=self.capture).traced(self.tracer, "keyframe")
         out = step(*inputs, fixed=(mapstate,))
         self.copied_bytes += self._bytes[key]
         return out
@@ -352,29 +385,33 @@ class RelocGraph:
     is rebound at every keyframe registration), the map storage and the
     vocabulary are read at their addresses (``fixed``), which must not move
     until ``clear()``.  The program reads nothing back, so a warm-up call on
-    any frame captures what a LOST frame replays."""
+    any frame captures what a LOST frame replays.  ``tracer`` names the
+    step's graph ``reloc``."""
 
     def __init__(self, program: Callable, *, capture: bool = True):
         self.program = program
         self.capture = capture
+        self.tracer: Optional[Tracer] = None
         self.clear()
 
     def clear(self) -> None:
         """Drop the graph: the map storage or the vocabulary was replaced."""
-        self._step = StepGraph(self.program, capture=self.capture)
+        self._step: Optional[StepGraph] = None   # built at the next call
         self._ptrs: Optional[tuple] = None
 
     @property
     def captures(self) -> int:
-        return self._step.captures
+        return self._step.captures if self._step is not None else 0
 
     @property
     def replays(self) -> int:
-        return self._step.replays
+        return self._step.replays if self._step is not None else 0
 
     def __call__(self, frame, u: torch.Tensor, db, mapstate: MapState, vocab):
         self._ptrs = held_addresses(self._ptrs, tree_leaves((mapstate, vocab)),
                                     "the map storage or the vocabulary", "relocalization graph")
+        if self._step is None:
+            self._step = StepGraph(self.program, capture=self.capture).traced(self.tracer, "reloc")
         return self._step(frame, u, db, fixed=(mapstate, vocab))
 
 
@@ -390,11 +427,14 @@ class PinnedRing:
     """A few pinned host buffers per (shape, dtype), allocated once and used
     in turn, each behind the event of its last copy: images go to the card
     and stats vectors come back with ``non_blocking`` copies, where a copy
-    from or to pageable memory would wait for all work queued before it."""
+    from or to pageable memory would wait for all work queued before it.
+    With a ``tracer`` on, the wait for a slot is a span ``pinned_wait``, and
+    a wait that blocked is counted (``pinned_waits``, ``pinned_wait_ns``)."""
 
     def __init__(self, device, n_slots: int = 4):
         self.device = torch.device(device)
         self.n_slots = n_slots
+        self.tracer: Optional[Tracer] = None
         self._rings: Dict[tuple, list] = {}
 
     def _slot(self, shape, dtype) -> _Slot:
@@ -405,7 +445,16 @@ class PinnedRing:
         slots, i = ring
         ring[1] = (i + 1) % len(slots)
         slot = slots[i]
-        slot.event.synchronize()   # its previous copy is done
+        tr = self.tracer
+        if tr is None or not tr.on:
+            slot.event.synchronize()   # its previous copy is done
+            return slot
+        with tr.span("pinned_wait"):
+            if not slot.event.query():
+                t0 = time.perf_counter_ns()
+                slot.event.synchronize()
+                tr.count("pinned_waits")
+                tr.count("pinned_wait_ns", time.perf_counter_ns() - t0)
         return slot
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:

@@ -77,6 +77,7 @@ from ..solvers.pose_graph import (
 from ..solvers.sim3_solver import optimize_sim3, ransac_sim3
 from ..utils import mask_from_ids, set_drop, topk_bounded
 from .frame_graph import StepGraph, donating, id_tensor, tree_leaves
+from .trace import Tracer
 
 
 class HostCopy:
@@ -587,7 +588,8 @@ class EssentialGraph:
     reads.  ``kf_cur`` and ``kf_cand`` go in as int32 [1] device tensors
     (host ints are converted).  A part captures at its first call on the
     card and raises if the capture fails; ``capture=False`` runs the same
-    static-buffer wrappers eagerly (the CPU)."""
+    static-buffer wrappers eagerly (the CPU).  ``traced(tracer)`` names the
+    parts' graph ``essential``."""
 
     def __init__(self, *, essential_weight: int, dense_max_k: int = DENSE_MAX_K, mesh=None,
                  capture: bool = True):
@@ -609,6 +611,11 @@ class EssentialGraph:
             StepGraph(step, capture=capture),
             StepGraph(commit, capture=capture),
         )
+
+    def traced(self, tracer: Optional[Tracer]) -> "EssentialGraph":
+        for p in self.parts:
+            p.traced(tracer, "essential")
+        return self
 
     @property
     def captures(self) -> int:
@@ -753,7 +760,7 @@ class LoopGraphs:
     capture fails; ``capture=False`` runs the same static-buffer wrappers
     eagerly (the CPU).  ``capture_log`` names each capture in order,
     ``replays`` counts the replays and ``copied_bytes`` the bytes written
-    into the map storage."""
+    into the map storage.  ``tracer`` names the steps' graph ``loop``."""
 
     def __init__(self, cfg: SLAMConfig, vocab: Vocabulary, *, capture: bool = True):
         o, c = cfg.orb, cfg.camera
@@ -785,6 +792,7 @@ class LoopGraphs:
         )
         self.vocab = vocab
         self.capture = capture
+        self.tracer: Optional[Tracer] = None
         self.capture_log: list = []
         self.replays = 0
         self.copied_bytes = 0
@@ -803,7 +811,8 @@ class LoopGraphs:
         entry = self._steps.get(name)
         if entry is None or entry[1] != where:
             self._steps.pop(name, None)   # the old graph goes before the new capture
-            entry = self._steps[name] = (StepGraph(self._programs[name], capture=self.capture), where)
+            entry = self._steps[name] = (StepGraph(self._programs[name], capture=self.capture)
+                                         .traced(self.tracer, "loop"), where)
         step = entry[0]
         captures, replays = step.captures, step.replays
         out = step(*inputs, fixed=fixed)
@@ -856,7 +865,9 @@ class LoopCloser:
     on the card, built at first use and dropped when the database grows),
     the essential graph through ``essential``.  ``span`` (name → context
     manager) wraps the stages that may read back, ``graph_span`` the
-    captured ones; the system sets both to time them."""
+    captured ones; the system sets both to time them, and ``tracer`` to its
+    own (the graphs' tracer, the ``read`` spans of host reads, the
+    ``host_reads`` counter)."""
 
     def __init__(self, cfg: SLAMConfig, vocab: Vocabulary):
         self.cfg = cfg
@@ -869,9 +880,7 @@ class LoopCloser:
         self.consistent_groups: List[Tuple[Set[int], int]] = []
         self.last_loop_kf = -1
         self.pending_sim3 = None   # the cascade in flight (sim3_begin / sim3_step)
-        # waits for a copied detection or gate: host reads that the sync
-        # debug mode does not report
-        self.host_reads = 0
+        self.tracer = Tracer()
         # (kf_cur, kf_cand, stage, gate counts) of every stage read back
         self.gate_log: list = []
         self.span = _no_span
@@ -906,10 +915,17 @@ class LoopCloser:
         """Bytes the loop graphs wrote into the map storage."""
         return self._dropped_bytes + (self.graphs.copied_bytes if self.graphs is not None else 0)
 
+    @property
+    def host_reads(self) -> int:
+        """Waits for a copied detection or gate: host reads that the sync
+        debug mode does not report."""
+        return self.tracer.counts.get("host_reads", 0)
+
     def loop_graphs(self) -> LoopGraphs:
         """The loop graphs, built at their first use (captured on the card)."""
         if self.graphs is None:
             self.graphs = LoopGraphs(self.cfg, self.vocab, capture=self.device.type == "cuda")
+            self.graphs.tracer = self.tracer
         return self.graphs
 
     def add_keyframe_to_db(self, state: MapState, kf_id: int) -> None:
@@ -919,8 +935,10 @@ class LoopCloser:
                                          self.db.max_words))
 
     def _read(self, x) -> np.ndarray:
-        self.host_reads += isinstance(x, HostCopy) and x.on_device
-        return _fetch(x)
+        if isinstance(x, HostCopy) and x.on_device:
+            self.tracer.count("host_reads")
+        with self.tracer.span("read"):
+            return _fetch(x)
 
     # ------------------------------------------------------------------
     def add_and_detect(self, state: MapState, kf_id: int) -> torch.Tensor:
@@ -1126,7 +1144,7 @@ class LoopCloser:
             if mesh is not None and mesh.axis != self.cfg.dist.mesh_axis:
                 raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {self.cfg.dist.mesh_axis!r}")
             self.essential = EssentialGraph(essential_weight=self.cfg.loop.essential_graph_weight,
-                                            mesh=mesh, capture=device.type == "cuda")
+                                            mesh=mesh, capture=device.type == "cuda").traced(self.tracer)
         return self.essential
 
     def warm_essential(self, state: MapState, mesh=None) -> None:
@@ -1181,7 +1199,7 @@ class LoopCloser:
             state = MapState(*(t.clone() for t in state))
         with self.graph_span("correct_front"):
             S_nc, group_mask, pre_conn = g.correct_front(state, kf_cur, kf_cand, S12, matched_mp)
-        with self.span("covis_read"):
+        with self.span("covis_read"), self.tracer.span("read"):
             w = state.covis[kf_cur].cpu().numpy()
         ids = np.argsort(-w)[:16]
         ids = ids[w[ids] >= mw]

@@ -333,13 +333,15 @@ class GBAGraphs:
     past the depth masked (a graph per rounding); it writes ``kf_Tcw`` and
     ``mp_pos`` into the map storage inside the graph, as the keyframe graphs
     do (``copied_bytes`` counts the bytes).  A storage of other shapes needs
-    ``clear()`` first."""
+    ``clear()`` first.  ``tracer`` (a ``pipeline.trace.Tracer``) names the
+    steps' graph ``gba``."""
 
     def __init__(self, *, n_iters: int = 1, pcg_iters: int = 40, lam: float = 0.1,
                  chi2_mono: float = 5.991, chi2_stereo: float = 7.815, capture: bool = True):
         self.solver = dict(n_iters=n_iters, pcg_iters=pcg_iters, lam=lam, chi2_mono=chi2_mono,
                            chi2_stereo=chi2_stereo)
         self.capture = capture
+        self.tracer = None
         self._bucket: Optional[_Bucket] = None
         self._commits: dict = {}     # rounds -> StepGraph
         self._map_ptrs: Optional[tuple] = None
@@ -413,7 +415,8 @@ class GBAGraphs:
             prob = GlobalBAProblem(*(t.to(dev, copy=True) for t in pad_global_to(pending.prob, K, M, N)))
             shards = None if mesh is None else _shard_global(prob, mesh, views=True)
             b = self._bucket = _Bucket(key, prob, shards,
-                                       StepGraph(self._chunk_program(mesh), capture=self.capture), pending.prob)
+                                       StepGraph(self._chunk_program(mesh), capture=self.capture)
+                                       .traced(self.tracer, "gba"), pending.prob)
             self.snapshot_loads += 1
         elif b.source is not pending.prob:
             # a new snapshot of this bucket: into the statics, at their addresses
@@ -452,7 +455,7 @@ class GBAGraphs:
                 nbytes[rounds] = copy_into(state, new)
                 return ()
 
-            step = self._commits[rounds] = StepGraph(donated, capture=self.capture)
+            step = self._commits[rounds] = StepGraph(donated, capture=self.capture).traced(self.tracer, "gba")
         dev = storage.kf_Tcw.device
         captures, replays = step.captures, step.replays
         step(*_commit_inputs(storage, pending), id_tensor(pending.snap_next_kf, dev),

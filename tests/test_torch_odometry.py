@@ -17,10 +17,12 @@ features, 768 keypoint slots), on JAX-rendered frames 0.35 m apart.
   (``StepGraph(capture=False)``: static inputs copied in, outputs cloned)
   bit-equal to the direct program, capturing once.
 * ``SLAM._pose_from_mp`` against JAX's on the same map points and frame.
-* ``SLAM.profile`` on the CPU eager path records every stage that ran.
+* ``SLAM.time_programs`` on the CPU eager path records every stage that
+  ran as a host span.
 """
 
 import types
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -241,21 +243,27 @@ def test_pose_from_mp_matches_jax(jax_frames):
 
 
 def test_profile_records_every_stage():
-    """``profile`` on: each stage that ran appends positive seconds; off:
-    nothing is recorded."""
+    """``time_programs`` on: each stage that ran is a host span of positive
+    length inside the ``track`` span of its call (``frontend`` on the first
+    frame, the eager frame program as ``dispatch`` on the others, the
+    keyframe programs); off: nothing is recorded."""
     cfg = small_cfg(tcfg, synchronous=True)
     ds = TDataset(cfg.camera, n_frames=4, speed=SPEED, device="cpu")
     on = tsys.SLAM(cfg, enable_loop_closing=False, device="cpu")
-    on.profile = True
+    on.time_programs = True
     off = tsys.SLAM(cfg, enable_loop_closing=False, device="cpu")
     for i in range(4):
         l, r, _ = ds.frame(i)
         for slam in (on, off):
             slam.track(l, r)
-    assert off.stage_times == {}
+    assert off.tracer.spans == [] and off.program_events == []
     assert on.n_keyframes >= 2
-    st = on.stage_times
-    assert set(st) == {"frontend", "track", "map_front", "map_tail"}, set(st)
-    assert len(st["frontend"]) == 1 and len(st["track"]) == 3
-    assert len(st["map_front"]) == len(st["map_tail"]) == on.n_keyframes - 1
-    assert all(t > 0 for ts in st.values() for t in ts)
+    spans = on.tracer.spans
+    st = Counter(s[0] for s in spans)
+    assert set(st) == {"track", "upload", "frontend", "dispatch", "fetch_wait", "decide", "map_front",
+                       "map_tail"}, set(st)
+    assert st["frontend"] == 1 and st["dispatch"] == 3 and st["track"] == st["upload"] == 4
+    assert st["map_front"] == st["map_tail"] == on.n_keyframes - 1
+    assert all(s[2] > s[1] for s in spans)
+    tracks = {s[4]: s for s in spans if s[0] == "track"}
+    assert all(tracks[s[4]][1] <= s[1] and s[2] <= tracks[s[4]][2] for s in spans)
