@@ -23,7 +23,11 @@ Phases (one line each; any failure raises and exits non-zero):
      one launch over the stereo canvas holding both pyramids (as the
      extractor calls it) and one launch per level;
   4. K2 ``patches`` against its plain version on the KITTI stereo canvas with
-     4096 centres, corners and clamp edges included — bit-equal;
+     4096 centres, corners and clamp edges included — bit-equal; then K3
+     ``brief`` on those 4096 patches against the dense product
+     (``describe_plain``): a bit may differ only where the dense score is
+     within 1e-4 of zero (the two sum in other orders; the tests hold K3 to
+     an emulation of its own order bit for bit);
   5. localization: ``SLAM`` in localization mode at the full KITTI width of
      the default ``SLAMConfig`` on 10 synthetic stereo frames rendered on
      the card.  Every frame must track OK within 0.05 m of ground truth, the
@@ -79,7 +83,7 @@ Phases (one line each; any failure raises and exits non-zero):
      kernel's device time at the main-path shapes (``device_ms``:
      back-to-back calls between one event pair, over the count) beside its
      plain version, its bound and, for K2, the one PyTorch call that gathers
-     the same windows;
+     the same windows, for K3 the f32 GEMM the dense product makes;
  11. graph + pipelined: phase 5's frames through the graph and through the
      eager program in turns, poses, stats vectors, local maps and the map
      bit-equal and one capture; one more frame of each under the profiler
@@ -393,7 +397,7 @@ from orb_slam2_ros2_tpu_torch import SLAMConfig
 from orb_slam2_ros2_tpu_torch.bow.keyframe_db import rebuild
 from orb_slam2_ros2_tpu_torch.io.synthetic import SyntheticStereoDataset
 from orb_slam2_ros2_tpu_torch.io.trajectory import ate_rmse
-from orb_slam2_ros2_tpu_torch.ops import _build, fast, patches
+from orb_slam2_ros2_tpu_torch.ops import _build, brief, fast, patches
 from orb_slam2_ros2_tpu_torch.ops.canvas import canvas_layout, padded_canvas_shape
 from orb_slam2_ros2_tpu_torch.pipeline.system import SLAM
 from orb_slam2_ros2_tpu_torch.pipeline.tracking import TrackState
@@ -405,6 +409,7 @@ MAX_TRANS_ERR_M = 0.05
 MIN_MEDIAN_INLIERS = 300
 FAST_TH = 7.0           # SLAMConfig().orb.min_th_fast
 TIMED_RUNS = 100        # back-to-back calls between one event pair
+KERNELS = ("fast_nms", "patches", "brief")  # K1, K2, K3 by the names of their wrappers' counts
 SLEEP_CYCLES = 20_000_000  # device sleep queued ahead of them (~10 ms)
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
@@ -641,6 +646,41 @@ def k1_check(levels, canvas, table) -> float:
     return err
 
 
+def k3_inputs(canvas, centers):
+    """K2's patches of ``centers`` on ``canvas`` (as the extractor gathers
+    them), their grey-centroid angles and bins, and K3's tables of the seeded
+    template."""
+    p = patches.extract_patches_48x64(canvas, centers)
+    ang = brief.orientations(p, brief.moment_weights(canvas.device))
+    return p, ang, brief.angle_bins(ang), brief.operator(canvas.device)
+
+
+def k3_check(p, ang, k3, D) -> int:
+    """Raises unless K3's bits equal the dense product's (``describe_plain``)
+    wherever the dense score is not within 1e-4 of zero (the two sum in other
+    orders); returns how many bits differ."""
+    got = brief.describe(p, ang, k3)
+    want = brief.describe_plain(p, ang, D)
+    n = p.shape[0]
+    scores = (p.reshape(n, -1).to(torch.bfloat16).float() @ D).reshape(n, brief.N_ANGLE_BINS, -1)
+    scores = scores[torch.arange(n, device=p.device), brief.angle_bins(ang).long()]
+    diff = (((got ^ want).long()[..., None] >> torch.arange(32, device=p.device)) & 1).bool().reshape(n, -1)
+    torch.cuda.synchronize()
+    if bool((scores[diff].abs() >= 1e-4).any()):
+        raise AssertionError(f"brief: {int(diff.sum())} bits differ from the dense product, some far from a tie")
+    return int(diff.sum())
+
+
+def k3_bound_ms(p) -> tuple:
+    """(bound ms, "bytes") of K3: the f32 patches and the bins read once,
+    the descriptors written once (K3's tables are its own encoding of the
+    template, not an input of the job); its 256 x 98 multiply-adds a patch
+    are far below the f32 peak."""
+    n = p.shape[0]
+    n_bytes = 4.0 * p.numel() + 4.0 * n + 32.0 * n
+    return n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def k2_inputs(cfg: SLAMConfig, gen: torch.Generator, batch: int = 2):
     """The canvas (``batch`` padded pyramids stacked: 2 for stereo, 1 for
     RGB-D) and batch·max_keypoints centres: random, plus the four corners,
@@ -676,6 +716,7 @@ _replays = {"run": 0, "profiled": 0}
 def _reset_launches() -> None:
     fast.fast_nms_launches = 0
     patches.patch_launches = 0
+    brief.brief_launches = 0
     _replays["run"] = 0
 
 
@@ -683,7 +724,7 @@ def _launches() -> dict:
     """The wrappers' launch counts (eager launches) and the frame-graph
     replays of the current run."""
     return {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches,
-            "replays": _replays["run"]}
+            "brief": brief.brief_launches, "replays": _replays["run"]}
 
 
 def _graphs(slam: SLAM):
@@ -722,14 +763,14 @@ def _track(slam: SLAM, label, img_a, img_b, profile: bool = False, track=None):
     r1, c1 = _graph_counts(slam)
     replays, captures = r1 - r0, c1 - c0
     want = captures if (captures or replays) else 1
-    k1, k2 = (_launches()[k] - before[k] for k in ("fast_nms", "patches"))
-    if k1 != want or k2 != want:
-        raise AssertionError(f"frame {label}: kernel launches fast_nms {k1}, patches {k2}; "
+    k1, k2, k3 = (_launches()[k] - before[k] for k in KERNELS)
+    if k1 != want or k2 != want or k3 != want:
+        raise AssertionError(f"frame {label}: kernel launches fast_nms {k1}, patches {k2}, brief {k3}; "
                              f"this call ran {want} frame program(s) eagerly, {replays} replay(s)")
     _replays["run"] += replays
     if profile:
         seen = _kernel_counts(prof)
-        if replays < 1 or seen != {"fast_nms": k1 + replays, "patches": k2 + replays}:
+        if replays < 1 or seen != {"fast_nms": k1 + replays, "patches": k2 + replays, "brief": k3 + replays}:
             raise AssertionError(f"frame {label} profiled: {replays} replay(s), {k1} eager launches, "
                                  f"the device ran {seen}")
         _replays["profiled"] += replays
@@ -1222,7 +1263,7 @@ def kernel_profile(fn) -> dict:
             dev_us += getattr(e, "self_device_time_total", 0.0)
             if not e.key.lower().startswith(("memcpy", "memset")):
                 dev_kernels += e.count
-            if "fast_nms_kernel" in e.key or "patches_kernel" in e.key:
+            if any(f"{name}_kernel" in e.key for name in KERNELS):
                 kernels[e.key] = e.count
     launches = sum(n for k, n in api.items() if "LaunchKernel" in k)
     return dict(launches=launches, graph_launches=sum(n for k, n in api.items() if "GraphLaunch" in k),
@@ -1231,9 +1272,8 @@ def kernel_profile(fn) -> dict:
 
 
 def _kernel_counts(prof: dict) -> dict:
-    """K1 and K2 runs the device made in a profile, by kernel."""
-    return {name: sum(n for k, n in prof["kernels"].items() if f"{name}_kernel" in k)
-            for name in ("fast_nms", "patches")}
+    """K1, K2 and K3 runs the device made in a profile, by kernel."""
+    return {name: sum(n for k, n in prof["kernels"].items() if f"{name}_kernel" in k) for name in KERNELS}
 
 
 def _frame_outputs(slam: SLAM) -> list:
@@ -1294,7 +1334,7 @@ def run_graph_vs_eager(cfg: SLAMConfig):
         _, _, prof[k]["untraced_ms"] = _track(s, f"{k} {N_FRAMES + 1}", *frames[N_FRAMES + 1][:2])
     g = prof["graph"]
     k_counts = sorted(g["kernels"].values())
-    if g["graph_launches"] != 1 or len(g["kernels"]) != 2 or k_counts != [1, 1]:
+    if g["graph_launches"] != 1 or len(g["kernels"]) != len(KERNELS) or k_counts != [1] * len(KERNELS):
         raise AssertionError(f"a replayed frame: {g['graph_launches']} graph launches, kernels {g['kernels']}")
     summary = dict(frames=N_FRAMES, captures=graphs.captures, capture_log=graphs.capture_log,
                    eager_ms_median=statistics.median(ms["eager"][2:]),
@@ -1961,12 +2001,12 @@ def _eager_twin(slam: SLAM, img_a, img_b):
     from orb_slam2_ros2_tpu_torch.pipeline.frame_graph import tree_leaves
 
     proj_th = 5.0 if slam.frame_id < slam.last_reloc_fid + 2 else 3.0
-    counts = (fast.fast_nms_launches, patches.patch_launches)
+    counts = _launches()
     mapstate = MapState(*(t.clone() for t in slam.map))
     new_state, velocity, host_vec, mapstate, local = slam.frame_program(
         img_a, img_b, slam.last, slam.velocity, slam.local, mapstate, kf_index(slam.ref_kf, slam.device),
         proj_th=proj_th)
-    fast.fast_nms_launches, patches.patch_launches = counts
+    fast.fast_nms_launches, patches.patch_launches, brief.brief_launches = (counts[k] for k in KERNELS)
     seen: dict = {}
     run_frame = slam._run_frame
 
@@ -2168,8 +2208,8 @@ def debug_graphs():
 
 
 def graph_kernel_nodes(graph) -> dict:
-    """The nodes of a graph captured under ``debug_graphs`` that run K1 and
-    K2 (by kernel), and its node count, read from its DOT dump
+    """The nodes of a graph captured under ``debug_graphs`` that run K1, K2
+    and K3 (by kernel), and its node count, read from its DOT dump
     (``cudaGraphDebugDotPrint``)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "graph.dot")
@@ -2178,7 +2218,7 @@ def graph_kernel_nodes(graph) -> dict:
             dot = f.read()
     start = r'[ \t]*"[^"\n]*node[^"\n]*"\s*\['   # a node statement: "graph_1_node_0"[...]
     nodes = [c for c in re.split(r"\n(?=" + start + ")", dot) if re.match(start, c)]
-    out = {name: sum(f"{name}_kernel" in n for n in nodes) for name in ("fast_nms", "patches")}
+    out = {name: sum(f"{name}_kernel" in n for n in nodes) for name in KERNELS}
     out["nodes"] = len(nodes)
     return out
 
@@ -2214,7 +2254,7 @@ def run_extractor_single(base: SLAMConfig):
     feats, pt = ext(img, cam)
     torch.cuda.synchronize()
     launches = _launches()
-    if (launches["fast_nms"], launches["patches"]) != (1, 1):
+    if tuple(launches[k] for k in KERNELS) != (1, 1, 1):
         raise AssertionError(f"15a: one-image extractor launched {launches}")
     k1, k2 = _twins()
     with k1, k2:
@@ -2263,7 +2303,7 @@ def run_odometry(base: SLAMConfig):
         est.append(np.linalg.inv(pose.astype(np.float64)))
     tracker_s = time.perf_counter() - t0
     tracker_launches = _launches()
-    if (tracker_launches["fast_nms"], tracker_launches["patches"]) != (ODO_FRAMES, ODO_FRAMES):
+    if tuple(tracker_launches[k] for k in KERNELS) != (ODO_FRAMES,) * len(KERNELS):
         raise AssertionError(f"15b: tracker launches {tracker_launches} for {ODO_FRAMES} frames")
     path = path_length(gt)
     ate = ate_rmse(est, gt)
@@ -2275,7 +2315,7 @@ def run_odometry(base: SLAMConfig):
     sf0 = fe(frames[0][0], frames[0][1], cam)
     pw, has = tr.unproject_frame(cam, sf0, eye)
     state_e = state_g = (tr.TrackedFrame(sf0, eye, pw, has), eye)
-    eager_ms, replay_ms, wrapper = [], [], {"fast_nms": 0, "patches": 0}
+    eager_ms, replay_ms, wrapper = [], [], dict.fromkeys(KERNELS, 0)
     prof = trace = None
     for i in range(1, ODO_FRAMES):
         l, r, _ = frames[i]
@@ -2306,12 +2346,12 @@ def run_odometry(base: SLAMConfig):
         if not _equal_trees(out_e, out_g):
             raise AssertionError(f"15b: fused step frame {i}: graph replay differs from the eager step")
         state_e, state_g = out_e[:2], out_g[:2]
-    if step.captures != 1 or step.replays != ODO_FRAMES - 2 or wrapper != {"fast_nms": 1, "patches": 1}:
+    if step.captures != 1 or step.replays != ODO_FRAMES - 2 or wrapper != dict.fromkeys(KERNELS, 1):
         raise AssertionError(f"15b: {step.captures} captures, {step.replays} replays, wrapper launches {wrapper}")
-    # what the graph holds, from its nodes: K1 and K2 once each (a replay runs
-    # every node once); the trace above is what the profiler recorded of one
+    # what the graph holds, from its nodes: K1, K2 and K3 once each (a replay
+    # runs every node once); the trace above is what the profiler recorded of one
     nodes = graph_kernel_nodes(next(iter(step._graphs.values())).graph)
-    if (nodes["fast_nms"], nodes["patches"]) != (1, 1):
+    if tuple(nodes[k] for k in KERNELS) != (1, 1, 1):
         raise AssertionError(f"15b: the odometry graph's kernel nodes {nodes}")
     graph_launches = dict(wrapper, replays=step.replays)
     _replays["run"] += step.replays
@@ -2471,7 +2511,7 @@ def run_corpus(base: SLAMConfig):
         stats = tcv.main(out=os.path.join(tmp, "vocab.npz"), device="cuda", depth=CORPUS_DEPTH, pairs=CORPUS_PAIRS, cfg=base)
         launches = _launches()
     n_batches = CORPUS_PAIRS * len(tcv.worlds(base.camera, "cuda"))
-    if (launches["fast_nms"], launches["patches"]) != (n_batches, n_batches):
+    if tuple(launches[k] for k in KERNELS) != (n_batches,) * len(KERNELS):
         raise AssertionError(f"15d: corpus launches {launches} for {n_batches} batches")
 
     extract = tcv.CorpusExtractor(base, "cuda")
@@ -3821,11 +3861,11 @@ def run_benches() -> dict:
     if full is None or full["rc"] != 0 or fd.get("ate_gate_pass") is not True or fd["tracked"] != fd["n_frames"]:
         problems.append(f"bench_full: {json.dumps(full)[:3000]}")
     want = (1 + 3) * bench.N_FRAMES   # the return pass's replays: the untimed run and 3 timed
-    if not (replays["fast_nms"] == replays["patches"] >= want):
-        problems.append(f"bench: K1 / K2 in {replays} frame-graph replays, want ≥ {want}")
+    if not (replays["fast_nms"] == replays["patches"] == replays["brief"] >= want):
+        problems.append(f"bench: K1 / K2 / K3 in {replays} frame-graph replays, want ≥ {want}")
     headline = {k: out[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"[21/22] bench ({seconds['bench']:.1f} s): {json.dumps(headline)}; detail {json.dumps(out['detail'])}; gate "
-          f"{json.dumps(gate)}; K1 / K2 in frame-graph replays {json.dumps(replays)}", flush=True)
+          f"{json.dumps(gate)}; K1 / K2 / K3 in frame-graph replays {json.dumps(replays)}", flush=True)
     print(f"[21/22] bench_full (subprocess, its launches counted in its own process): {json.dumps(full)}",
           flush=True)
 
@@ -4186,7 +4226,7 @@ def run_phase22(base: SLAMConfig, map_cfg: SLAMConfig) -> list:
                                              median_inliers=noise["median_inliers"]),
                    d=dict(weak_frame=weak["weak_frame"], pipelined_vs_sync=weak["pipelined_vs_sync"]),
                    e=dict(device=dry["device"]),
-                   launches={n: sum(x[n] for x in runs) for n in ("fast_nms", "patches", "replays")})
+                   launches={n: sum(x[n] for x in runs) for n in (*KERNELS, "replays")})
     print(f"[22/22] distortion, noise, weak frame, dry run: {json.dumps(summary)}", flush=True)
     return runs
 
@@ -4231,6 +4271,11 @@ def main() -> int:
     k2_err = k2_check(canvas, centers)
     print(f"[4/22] patches: bit-equal to extract_patches_plain, canvas {tuple(canvas.shape)}, "
           f"{centers.shape[0]} centres", flush=True)
+    k3_p, k3_ang, k3_bins, k3_tab = k3_inputs(canvas, centers)
+    k3_D = brief.pair_matrix("cuda")
+    k3_bits = k3_check(k3_p, k3_ang, k3_tab, k3_D)
+    print(f"[4/22] brief: against describe_plain on phase 4's {k3_p.shape[0]} patches, {k3_bits} of "
+          f"{k3_p.shape[0] * brief.N_PAIRS} bits differ, each at a dense score within 1e-4 of zero", flush=True)
 
     records, launches, med = run_slice(cfg)
     print(f"[5/22] localization: {N_FRAMES} frames OK, median n_inliers(1-9) {med}, "
@@ -4285,6 +4330,12 @@ def main() -> int:
     rows, cols = k2_windows(canvas, centers)
     k2_lib = device_ms(lambda: canvas[rows, cols])
     k2_bound, k2_by = k2_bound_ms(canvas, rows, cols)
+    k3_ms = device_ms(lambda: brief.describe_kernel(k3_p, k3_bins, k3_tab))
+    k3_plain = device_ms(lambda: brief.describe_plain(k3_p, k3_ang, k3_D), runs=20, queue_ahead=False)
+    k3_flat = k3_p.reshape(k3_p.shape[0], -1).to(torch.bfloat16).float()
+    k3_scores = torch.empty((k3_p.shape[0], k3_D.shape[1]), dtype=torch.float32, device="cuda")
+    k3_lib = device_ms(lambda: torch.matmul(k3_flat, k3_D, out=k3_scores), runs=20)
+    k3_bound, k3_by = k3_bound_ms(k3_p)
     print(f"[10/22] localization frame ms (frames 2-{N_FRAMES - 1}): median {_frame_ms(records):.3f}, "
           f"all {[round(r['ms'], 3) for r in records[2:]]} | mapping frame ms (frames ≥ 2): "
           f"keyframe median {_frame_ms(map_records, True):.3f}, other median "
@@ -4309,7 +4360,9 @@ def main() -> int:
           f"one launch) {k1_ms:.5f} (per-level design {K1_OLD_MS}) vs plain {k1_plain:.4f}, bound "
           f"{k1_bound * 1e3:.3f} us ({k1_by}), share {k1_bound / k1_ms:.3f} | patches {k2_ms:.5f} "
           f"(before {K2_OLD_MS}) vs plain {k2_plain:.4f}, library canvas[rows, cols] {k2_lib:.5f}, "
-          f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f}", flush=True)
+          f"bound {k2_bound * 1e3:.3f} us ({k2_by}), share {k2_bound / k2_ms:.3f} | brief "
+          f"({k3_p.shape[0]} patches) {k3_ms:.5f} vs plain {k3_plain:.4f}, library (the f32 GEMM) "
+          f"{k3_lib:.4f}, bound {k3_bound * 1e3:.3f} us ({k3_by}), share {k3_bound / k3_ms:.3f}", flush=True)
 
     pair_launches, pair = run_graph_vs_eager(cfg)
     print(f"[11/22] graph vs eager, localization: {N_FRAMES} frames bit-equal (poses, stats vectors, "
@@ -4376,8 +4429,13 @@ def main() -> int:
     # the tools' and the benches' graph replays (phases 20 and 21, counted per
     # kernel)
     replays = sum(x["replays"] for x in runs_launches)
+    # K3 describes every patch gather of the main path: only the tools' stage
+    # timings stop at the patches or the angles
+    uneven = [x for x in runs_launches if x is not tool_launches and x["brief"] != x["patches"]]
+    if uneven:
+        raise AssertionError(f"runs whose K3 and K2 wrapper launches differ: {uneven}")
     counts = {}
-    for name in ("fast_nms", "patches"):
+    for name in KERNELS:
         eager = sum(x[name] for x in runs_launches)
         in_graphs = replays + sum(x.get(f"graph_{name}", 0) for x in runs_launches)
         counts[name] = dict(launches=eager + in_graphs, launches_by_wrapper=eager,
@@ -4398,6 +4456,10 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib, "bound_us": k2_bound * 1e3,
          "share": k2_bound / k2_ms},
+        {"name": "brief", "route": "cuda", "source": "orb_slam2_ros2_tpu_torch/csrc/brief.cu",
+         "replaces": None, **counts["brief"], "bits_differing": k3_bits, "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib,
+         "bound_us": k3_bound * 1e3, "share": k3_bound / k3_ms},
     ]
     print(f"[done] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,9 @@ reuses the gathered patches for SAD refinement.  The RGB-D frontend and the
 one-image extractor (``make_extractor``) run the same ops on a one-image
 canvas; the RGB-D frontend reads each keypoint's depth from the depth map.
 Constant operators (resize
-weights, moment weights, the BRIEF sampling matrix) and the FAST kernel's
-level table are built once, when the frontend is built, so a frame copies
-nothing from the host.
+weights, moment weights, the BRIEF sampling matrix on the CPU or K3's tables
+of it on CUDA) and the FAST kernel's level table are built once, when the
+frontend is built, so a frame copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class FrontendConstants(NamedTuple):
     row_off: torch.Tensor    # i32[n_levels] canvas row offset per level
     fast_table: fast.PyramidTable  # where the FAST kernel finds each (image, level)
     mweights: torch.Tensor   # f32[patch_px, 2] grey-centroid weights
-    pair_matrix: torch.Tensor  # f32[patch_px, 8192] folded-blur BRIEF matrix
+    brief: torch.Tensor | brief.K3Tables  # brief.operator: f32[patch_px, 8192] D on the CPU, K3's tables on CUDA
 
 
 def frontend_constants(cfg: SLAMConfig, device, n_images: int = 2) -> FrontendConstants:
@@ -65,7 +65,7 @@ def frontend_constants(cfg: SLAMConfig, device, n_images: int = 2) -> FrontendCo
         row_off=torch.from_numpy(row_off).to(device),
         fast_table=fast.pyramid_table(tuple(row_off.tolist()), tuple(shapes), n_images, rows_p, cols_p),
         mweights=brief.moment_weights(device),
-        pair_matrix=brief.pair_matrix(device, _template_pair_matrix(cfg)),
+        brief=brief.operator(device, _template(cfg)),
     )
 
 
@@ -121,7 +121,7 @@ def extract_features_batch(
     centers = torch.stack([centers[..., 0] + img_off, centers[..., 1]], dim=-1)
     patches = extract_patches_48x64(canvas, centers.reshape(B * N, 2).contiguous())
     angles_rad = brief.orientations(patches, consts.mweights)
-    desc = brief.describe(patches, angles_rad, consts.pair_matrix).reshape(B, N, 8)
+    desc = brief.describe(patches, angles_rad, consts.brief).reshape(B, N, 8)
     patches = patches.reshape(B, N, *patches.shape[1:])
     angles_rad = angles_rad.reshape(B, N)
 
@@ -161,13 +161,18 @@ def _extract_kw(cfg: SLAMConfig) -> dict:
     )
 
 
+def _template(cfg: SLAMConfig):
+    """The configured reference BRIEF template (None = the generated default)."""
+    if cfg.orb.brief_template_path:
+        return brief.load_template_file(cfg.orb.brief_template_path)
+    return None
+
+
 def _template_pair_matrix(cfg: SLAMConfig):
     """Per-instance BRIEF sampling matrix for a configured reference template
     (None = the generated default)."""
-    if cfg.orb.brief_template_path:
-        tpl = brief.load_template_file(cfg.orb.brief_template_path)
-        return brief.pair_matrix_for_template(tpl)
-    return None
+    tpl = _template(cfg)
+    return None if tpl is None else brief.pair_matrix_for_template(tpl)
 
 
 def _device_gray(img: torch.Tensor, color: int, luma: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fast_nms": {"fast_nms_pyramid_bf16": ([_P, _P, _P, _F, _I, _P], _I)},
     "patches": {"extract_patches_bf16": ([_P, _P, _P, _I, _I, _I, _P], _I)},
+    "brief": {"brief_describe": ([_P, _P, _P, _P, _I, _P, _I, _P], _I)},
 }
 
 _libs: dict = {}

@@ -27,11 +27,11 @@ capture follows.  A failing capture or replay raises: there is no eager
 fallback on CUDA.  ``capture=False`` runs the same static-buffer wrapper with
 the program called eagerly in place of the replay (the CPU tests).
 
-The two hand-written kernels launch on ``torch.cuda.current_stream()`` and
-K1 takes its level table by value, so a capture records both as they are
+The three hand-written kernels launch on ``torch.cuda.current_stream()`` and
+K1 takes its level table by value, so a capture records each as it is
 (on the H100 a replay runs each once, bit-equal to the eager program).  The
 kernel wrappers count a launch where they launch (``fast.fast_nms_launches``,
-``patches.patch_launches``): the eager first frame counts, a capture launches
+``patches.patch_launches``, ``brief.brief_launches``): the eager first frame counts, a capture launches
 nothing and counts nothing, and a replay — launched by the CUDA graph, not by a
 wrapper — counts in ``replays`` only (``chip_smoke.py`` profiles replays to
 see the kernels run inside them).

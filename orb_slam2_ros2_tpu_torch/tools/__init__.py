@@ -9,7 +9,7 @@ result, with the card's name and power limit, as one JSON line, last.
 Where the JAX script times a jitted program, the tool times the same
 program as a captured CUDA graph (``frame_graph.StepGraph``) and, where the
 production path replays it, the eager program beside it (``_timing``).
-The kernels K1 and K2 are reached only through their production wrappers,
+The kernels K1, K2 and K3 are reached only through their production wrappers,
 which build from ``csrc/`` at first use.
 
 Counterparts: ``profile_scan``, ``profile_extract``, ``profile_trace``,

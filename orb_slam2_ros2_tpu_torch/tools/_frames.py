@@ -101,4 +101,4 @@ class Stages:
 
     def describe(self, imgs):
         p, a = self.orientations(imgs)
-        return brief.describe(p, a, self.consts.pair_matrix)
+        return brief.describe(p, a, self.consts.brief)

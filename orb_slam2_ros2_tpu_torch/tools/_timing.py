@@ -19,12 +19,12 @@ On ``--device cpu`` a ``StepGraph(capture=False)`` runs the program eagerly
 behind the same static buffers, timed by ``perf_counter``: CPU times are
 for the tests, not for ``PERF.md``.
 
-Kernel launches: the wrappers of K1 and K2 count what they launch
-(``ops.fast.fast_nms_launches``, ``ops.patches.patch_launches``); a CUDA
-graph's replay launches through the graph, so ``Replay`` reads how many of
-each its program launched on its eager first call and adds that to
-``graph_kernels`` at every replay, and ``note_slam`` adds one of each for
-every frame-graph replay of a ``SLAM``.
+Kernel launches: the wrappers of K1, K2 and K3 count what they launch
+(``ops.fast.fast_nms_launches``, ``ops.patches.patch_launches``,
+``ops.brief.brief_launches``); a CUDA graph's replay launches through the
+graph, so ``Replay`` reads how many of each its program launched on its
+eager first call and adds that to ``graph_kernels`` at every replay, and
+``note_slam`` adds one of each for every frame-graph replay of a ``SLAM``.
 """
 
 from __future__ import annotations
@@ -37,12 +37,12 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops import fast, patches
+from ..ops import brief, fast, patches
 from ..pipeline.frame_graph import StepGraph, tree_leaves
 
-# K1 and K2 runs inside CUDA-graph replays made by the tools since the last
-# reset (a wrapper counts only what it launches itself)
-graph_kernels = {"fast_nms": 0, "patches": 0}
+# K1, K2 and K3 runs inside CUDA-graph replays made by the tools since the
+# last reset (a wrapper counts only what it launches itself)
+graph_kernels = {"fast_nms": 0, "patches": 0, "brief": 0}
 
 
 class Failed(SystemExit):
@@ -61,12 +61,13 @@ def reset_counts() -> None:
 
 
 def wrapper_counts() -> dict:
-    return {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches}
+    return {"fast_nms": fast.fast_nms_launches, "patches": patches.patch_launches,
+            "brief": brief.brief_launches}
 
 
 def note_slam(slam) -> None:
-    """Add the K1 and K2 runs of ``slam``'s frame-graph replays (one each a
-    replay; the split's tracker graph likewise)."""
+    """Add the K1, K2 and K3 runs of ``slam``'s frame-graph replays (one
+    each a replay; the split's tracker graph likewise)."""
     g = slam._frame_graphs if slam._frame_graphs is not None else slam._track_graphs
     if g is not None:
         for k in graph_kernels:
@@ -160,7 +161,7 @@ def reduce_sum(out) -> torch.Tensor:
 class Replay:
     """``program`` as a ``StepGraph`` (captured on the card, eager behind
     the same static buffers on the CPU), or an existing ``StepGraph``;
-    counts the K1 and K2 runs of its replays into ``graph_kernels``."""
+    counts the K1, K2 and K3 runs of its replays into ``graph_kernels``."""
 
     def __init__(self, program, device: torch.device):
         self.step = program if isinstance(program, StepGraph) else StepGraph(
