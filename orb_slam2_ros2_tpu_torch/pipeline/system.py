@@ -858,7 +858,7 @@ class SLAM:
                 max_free=b.max_local_ba_kfs, max_fixed=b.max_local_ba_fixed,
                 max_points=b.local_ba_points, chi2_mono=b.chi2_mono, chi2_stereo=b.chi2_stereo,
                 lam=b.lm_lambda_init, scale_factor=self.cfg.orb.scale_factor,
-                phase_iters=tuple(b.local_ba_phase_iters),
+                phase_iters=tuple(b.local_ba_phase_iters), erase_in_anchors=b.local_ba_erase_in_anchors,
             )
         if do_cull:
             mapstate = self._cull_kfs(mapstate, kf_id)
@@ -1238,8 +1238,9 @@ class SLAM:
 
     def _redispatch_speculation(self, corr_state: SlamFrame, corr_velocity, cause: str) -> None:
         """Re-dispatch the in-flight successor from a corrected state (a weak
-        frame's fallback, or a keyframe's fused state: ``cause`` "weak" or
-        "keyframe", counted as ``redispatch.<cause>``), with the images kept
+        frame's fallback, a keyframe's fused state, or the last frame moved by
+        a loop correction or a GBA commit: ``cause`` "weak", "keyframe" or
+        "correction", counted as ``redispatch.<cause>``), with the images kept
         in its record.  The discarded dispatch already bumped the map's
         tracking counters: one frame of slightly-off visible / found counts,
         as in the JAX loop."""
@@ -1724,6 +1725,7 @@ class SLAM:
         with self._loop_stage("resolve"):
             cand = self.loop_closer.detect_resolve(kf_id, out, kf_window=not is_frame)
             if cand is not None:
+                self.tracer.count("loop.candidates")
                 self.loop_closer.sim3_begin(self.map, self.map_cam, kf_id, cand)
         return False
 
@@ -1737,6 +1739,8 @@ class SLAM:
             return False
         kf_id, cand, S12, matched_mp, group = res
         # a GBA in flight dies with the new closure (LoopClosing.cc:87)
+        if self._pending_gba is not None:
+            self.tracer.count("gba.aborted")
         self._pending_gba = None
         ref_before = self.map.kf_Tcw[self.ref_kf].clone()
         with self._loop_stage("correct"):
@@ -1745,6 +1749,7 @@ class SLAM:
         with self._loop_stage("gba_start"):
             self._pending_gba = start_global_ba(self.map, self.cfg.orb.scale_factor)
         self.loops_closed += 1
+        self.tracer.count("loop.closures")
         self._last_closure_fid = self.frame_id
         # detections dispatched before the correction carry pre-closure
         # candidates and chains
@@ -1765,6 +1770,7 @@ class SLAM:
         """One background-GBA chunk; the commit after the last one."""
         with self._keyframe_program("gba_chunk"):
             self._pending_gba = self._gba_chunk(self._pending_gba)
+        self.tracer.count("gba.chunks")
         if self._pending_gba.chunks_done >= sum(self.cfg.loop.global_ba_phase_iters):
             self._commit_pending_gba()
 
@@ -1780,32 +1786,35 @@ class SLAM:
 
     def _reanchor_tracker(self, ref_before: torch.Tensor) -> None:
         """Apply the correction that moved the reference keyframe to the
-        tracker's last frame and to the pipelined loop's in-flight frame.
-        ``ref_before`` must be a copy: the correction replaces ``kf_Tcw``,
-        and a view of the old row would make the delta the identity if it
-        were written in place.
+        tracker.  ``ref_before`` must be a copy: the correction replaces
+        ``kf_Tcw``, and a view of the old row would make the delta the
+        identity if it were written in place.
 
-        The in-flight frame moves whatever object holds its state (the JAX
-        loop moves it only when it is the same object as the last frame);
-        resolved later at its old pose, it would insert a keyframe at the
-        pre-correction pose into the corrected map.  It keeps the velocity
-        it measured: a motion between two frames tracked on the same map,
-        which one correction of both leaves as it was.  With no frame in
-        flight the motion model restarts from the identity, as in the JAX
-        system (the JAX loop restarts it with a frame in flight too, and the
-        frame dispatched next — two frames past the last one tracked on the
-        old map — was lost on the loop world)."""
+        The pipelined loop's frame in flight was tracked against the map
+        before the correction: its pose, its matches and its local map are
+        the old map's, and moving its pose by the reference keyframe's
+        correction leaves it off by whatever the fuses and the essential
+        graph moved its own points beyond that (resolved at that pose, it
+        would hand the next frame, and any keyframe it inserts, a pose off
+        its points).  So it is re-dispatched against the corrected
+        map (``redispatch.correction``), as the synchronous loop tracks the
+        frame after a correction: from the frame it was dispatched from,
+        moved by the correction, with the velocity it measured (a motion
+        between two frames tracked on the same map, which one correction of
+        both leaves as it was).  With no frame in flight the last frame
+        moves and the motion model restarts from the identity, as in the
+        JAX system (which restarts it with a frame in flight too, and moves
+        that frame only when it is the same object as the last one)."""
         if self.last is None:
             return
         delta = self._to_tracker(se3.inverse(ref_before) @ self.map.kf_Tcw[self.ref_kf])
-        self.last = self.last._replace(Tcw=self.last.Tcw @ delta)
-        if self._inflight is None:
+        inf = self._inflight
+        if inf is None:
+            self.last = self.last._replace(Tcw=self.last.Tcw @ delta)
             self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
             return
-        inf = self._inflight
-        self._inflight = inf._replace(state=inf.state._replace(Tcw=inf.state.Tcw @ delta),
-                                      last_in=inf.last_in._replace(Tcw=inf.last_in.Tcw @ delta))
-        self.velocity = inf.velocity
+        self._redispatch_speculation(inf.last_in._replace(Tcw=inf.last_in.Tcw @ delta), inf.velocity,
+                                     "correction")
 
     def run_global_ba(self, mesh=None) -> None:
         """Full-map bundle adjustment now (reference globalOptimization),

@@ -192,9 +192,22 @@ def test_copied_builders_equal(name):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
+def jax_defaults(cfg) -> dict:
+    """``dataclasses.asdict`` of a JAX configuration with the port's
+    deliberate departures from its defaults: the global BA after a loop
+    runs ungated (``config.LoopConfig.global_ba_phase_iters``) and local BA
+    erases the outliers of its fixed anchors too
+    (``config.BAConfig.local_ba_erase_in_anchors``)."""
+    d = dataclasses.asdict(cfg)
+    d["loop"]["global_ba_phase_iters"] = tcfg.LoopConfig().global_ba_phase_iters
+    d["ba"]["local_ba_erase_in_anchors"] = tcfg.BAConfig().local_ba_erase_in_anchors
+    return d
+
+
 def test_config_defaults_equal():
-    assert dataclasses.asdict(tcfg.SLAMConfig()) == dataclasses.asdict(jcfg.SLAMConfig())
-    assert dataclasses.asdict(small_cfg(tcfg)) == dataclasses.asdict(small_cfg(jcfg))
+    assert tcfg.LoopConfig().global_ba_phase_iters == (10, 0) and tcfg.BAConfig().local_ba_erase_in_anchors
+    assert dataclasses.asdict(tcfg.SLAMConfig()) == jax_defaults(jcfg.SLAMConfig())
+    assert dataclasses.asdict(small_cfg(tcfg)) == jax_defaults(small_cfg(jcfg))
 
 
 # ------------------------------------------------------------------ FAST --

@@ -40,8 +40,10 @@ POINT_M, POSE_M, POSE_DEG = 5e-3, 1e-3, 5e-3
 
 
 def setup_slams():
-    cfg_j = make_cfg(jcfg, K=16, M=2048, consistency_th=1)
-    cfg_t = make_cfg(tcfg, K=16, M=2048, consistency_th=1)
+    # JAX's loop GBA phases on both sides (the port's default runs them
+    # ungated): the walk compares the chunks one by one
+    cfg_j = make_cfg(jcfg, K=16, M=2048, consistency_th=1, global_ba_phase_iters=(3, 3))
+    cfg_t = make_cfg(tcfg, K=16, M=2048, consistency_th=1, global_ba_phase_iters=(3, 3))
     st, _ = loop_world(cfg_j, n_chain=11, P=100)
     sj, stt = states(st)
     descs = st["kf_desc"][st["kf_feat_valid"]]

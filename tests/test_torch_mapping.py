@@ -70,8 +70,17 @@ def small_cfg(mod, **mapping):
         tracking=mod.TrackingConfig(min_init_depth_kps=150, max_local_mappoints=4096,
                                     max_local_keyframes=16),
         map=mod.MapConfig(max_keyframes=64, max_mappoints=16384, max_obs_per_mp=16),
+        ba=mod.BAConfig(**jax_local_ba(mod)),
     )
     return cfg.replace(mapping=dataclasses.replace(cfg.mapping, **mapping))
+
+
+def jax_local_ba(mod) -> dict:
+    """``BAConfig`` fields that give the port's local BA JAX's outlier
+    removal (the free keyframes' alone), for the configurations the tests
+    run on both systems; nothing for JAX's module."""
+    names = {f.name for f in dataclasses.fields(mod.BAConfig)}
+    return {"local_ba_erase_in_anchors": False} if "local_ba_erase_in_anchors" in names else {}
 
 
 def jax_modules(cfg):

@@ -17,10 +17,11 @@ frame at 0.55 m/frame) over 12 frames rendered by the JAX package.
   recovery re-dispatches its successor with the local map the weak frame was
   dispatched with (what the synchronous loop keeps); its fallback starts
   from the frame the weak one was dispatched from and keeps the motion
-  model, as the synchronous loop's does; and a correction moves the
-  in-flight frame's pose even when it is not the same object as the last
-  frame, and keeps the velocity it measured (JAX restarts it from the
-  identity).
+  model, as the synchronous loop's does; and a correction re-dispatches the
+  in-flight frame against the corrected map, from the frame it was
+  dispatched from, moved, with the velocity it measured (JAX moves its pose
+  only when it is the same object as the last frame, and restarts the
+  motion model from the identity).
 
 The blackout relocalization case is ``tests/test_torch_pipelined_reloc.py``.
 """
@@ -31,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_mapping import rot_deg, two_torch_threads  # noqa: F401  (autouse)
+from test_torch_mapping import jax_local_ba, rot_deg, two_torch_threads  # noqa: F401  (autouse)
 
 import orb_slam2_ros2_tpu.config as jcfg
 import orb_slam2_ros2_tpu_torch.config as tcfg
@@ -60,7 +61,7 @@ def pipe_cfg(mod, pipelined=True, **tracking):
         mapping=mod.MappingConfig(synchronous=False),
         map=mod.MapConfig(max_keyframes=32, max_mappoints=8192, max_obs_per_mp=12),
         bow=mod.BoWConfig(branching=4, depth=2),
-        ba=mod.BAConfig(pcg_iters=15),
+        ba=mod.BAConfig(pcg_iters=15, **jax_local_ba(mod)),
     )
 
 
@@ -235,26 +236,44 @@ def test_weak_frame_fallback_keeps_the_motion_model(frames, runs):
     np.testing.assert_array_equal(np.asarray(js._ref_result[1]), np.eye(4, dtype=np.float32))
 
 
+def _correct_map(slam, G):
+    """A correction that moves the whole map by the rigid motion ``G``
+    (points ``G·p``, keyframes ``Tcw·G⁻¹``), published as the closure and
+    the GBA commit publish theirs, then the tracker re-anchored.  Returns
+    the correction's delta of every pose, ``G⁻¹``."""
+    m = slam.map
+    ref_before = m.kf_Tcw[slam.ref_kf].clone()
+    slam.map = m._replace(kf_Tcw=m.kf_Tcw @ se3.inverse(G), mp_pos=se3.apply(G, m.mp_pos))
+    slam._publish_local(slam._snapshot(slam.map, slam.ref_kf))
+    slam._reanchor_tracker(ref_before)
+    return se3.inverse(G)
+
+
 def test_reanchor_moves_the_inflight_pose(frames):
-    """A correction moves the in-flight frame's pose with the last frame's,
-    also when the two are different objects; the JAX loop moves it only
-    when they are the same object."""
-    D = se3.exp(torch.tensor([0.05, -0.02, 0.1, 0.01, 0.02, -0.03]))
+    """A correction lands while a frame is in flight: the frame is
+    re-dispatched against the corrected map from the frame it was
+    dispatched from, moved by the correction, and its pose comes out where
+    the correction put its scene (within the tolerance); its record now
+    holds the corrected local map.  The JAX loop moves an in-flight pose
+    only when it is the same object as the last frame."""
+    G = se3.exp(torch.tensor([0.05, -0.02, 0.1, 0.01, 0.02, -0.03]))
     slam = tsys.SLAM(pipe_cfg(tcfg), enable_loop_closing=False, device="cpu")
     for i in range(3):
         slam.track(*frames[i][:2])
-    assert slam._inflight is not None and slam._inflight.state is slam.last
-    slam.last = slam.last._replace()                     # same tensors, another object
-    T_last, T_inf = slam.last.Tcw.clone(), slam._inflight.state.Tcw.clone()
-    ref_now = slam.map.kf_Tcw[slam.ref_kf]
-    slam._reanchor_tracker(ref_now @ se3.inverse(D))     # the correction moved the ref by D
-    delta = se3.inverse(ref_now @ se3.inverse(D)) @ ref_now
-    torch.testing.assert_close(slam.last.Tcw, T_last @ delta)
-    torch.testing.assert_close(slam._inflight.state.Tcw, T_inf @ delta)
-    assert not torch.allclose(slam._inflight.state.Tcw, T_inf, atol=1e-3)
+    inf = slam._inflight
+    assert inf is not None and inf.state is slam.last
+    T_inf, T_from = inf.state.Tcw.clone(), inf.last_in.Tcw.clone()
+    delta = _correct_map(slam, G)
+    moved = slam._inflight
+    assert moved.fid == inf.fid and moved.state is slam.last
+    assert slam.tracer.counts["redispatch.correction"] == 1
+    torch.testing.assert_close(moved.last_in.Tcw, T_from @ delta)
+    _poses_close([(0, (T_inf @ delta).numpy())], [(0, moved.state.Tcw.numpy())])
+    assert not torch.allclose(moved.state.Tcw, T_inf, atol=1e-3)
+    assert torch.equal(moved.local_in.pos, slam._snapshot(slam.map, slam.ref_kf).pos)
 
     js = jsys.SLAM(pipe_cfg(jcfg), enable_loop_closing=False)
-    Dj = jnp.asarray(D.numpy())
+    Dj = jnp.asarray(G.numpy())
     T = jnp.asarray(T_inf.numpy())
     for same in (True, False):
         js.last = jsys.SlamFrame(frame=None, Tcw=T, mp_ids=None)
@@ -266,11 +285,12 @@ def test_reanchor_moves_the_inflight_pose(frames):
 
 
 def test_reanchor_keeps_the_inflight_velocity(frames):
-    """With a frame in flight a correction keeps the velocity that frame
-    measured (a motion between two frames tracked on the same map, which
-    one correction of both leaves as it was); with none, as in the
-    synchronous loop, the motion model restarts from the identity.  The
-    JAX loop restarts it in both cases."""
+    """With a frame in flight a correction re-dispatches it with the
+    velocity it measured (a motion between two frames tracked on the same
+    map, which one correction of both leaves as it was), and the re-tracked
+    velocity agrees with it; with none, as in the synchronous loop, the
+    motion model restarts from the identity.  The JAX loop restarts it in
+    both cases."""
     D = se3.exp(torch.tensor([0.05, -0.02, 0.1, 0.01, 0.02, -0.03]))
     eye = torch.eye(4)
     for pipelined in (True, False):
@@ -279,10 +299,15 @@ def test_reanchor_keeps_the_inflight_velocity(frames):
             slam.track(*frames[i][:2])
         v = slam.velocity.clone()
         assert float(torch.linalg.norm(v[:3, 3])) > 0.3
+        calls = _spy_frames(slam)
         if pipelined:
             assert torch.equal(slam._inflight.velocity, v)
-        slam._reanchor_tracker(slam.map.kf_Tcw[slam.ref_kf] @ se3.inverse(D))
-        assert torch.equal(slam.velocity, v if pipelined else eye)
+        _correct_map(slam, D)
+        if pipelined:                                    # the in-flight frame's re-dispatch
+            assert len(calls) == 1 and torch.equal(calls[0][3], v)
+            assert float((slam.velocity[:3, 3] - v[:3, 3]).abs().max()) <= POSE_TOL_M
+        else:
+            assert calls == [] and torch.equal(slam.velocity, eye)
 
     js = jsys.SLAM(pipe_cfg(jcfg), enable_loop_closing=False)
     js.last = jsys.SlamFrame(frame=None, Tcw=jnp.eye(4, dtype=jnp.float32), mp_ids=None)

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_epnp import jax_minimal_sets
-from test_torch_mapping import rot_deg
+from test_torch_mapping import jax_local_ba, rot_deg
 from test_torch_mapping import two_torch_threads  # noqa: F401  (autouse)
 
 import orb_slam2_ros2_tpu.config as jcfg
@@ -65,6 +65,10 @@ def reloc_cfg(mod, **tracking):
                                               max_local_keyframes=16), **tracking}),
         map=mod.MapConfig(max_keyframes=64, max_mappoints=16384, max_obs_per_mp=16),
         bow=mod.BoWConfig(branching=6, depth=3),
+        # JAX's loop GBA phases and local BA (the port's defaults depart):
+        # the saved configurations are compared field for field
+        loop=mod.LoopConfig(global_ba_phase_iters=(3, 3)),
+        ba=mod.BAConfig(**jax_local_ba(mod)),
     )
 
 
@@ -169,7 +173,11 @@ def test_port_save_is_loaded_by_jax(built, tmp_path):
     np.savez_compressed(str(tmp_path / "old.map.npz"), **old)
     st, _ = tpers.load_map(str(tmp_path / "old.map.npz"), "cpu")
     assert torch.equal(st.kf_Tcp, torch.eye(4).expand_as(st.kf_Tcp))
-    assert tpers._cfg_to_dict(slam.cfg) == jpers._cfg_to_dict(reloc_cfg(jcfg, only_tracking=True))
+    # the port's configuration holds one field JAX's has not
+    # (``ba.local_ba_erase_in_anchors``)
+    cfg_dict = tpers._cfg_to_dict(slam.cfg)
+    assert cfg_dict["ba"].pop("local_ba_erase_in_anchors") is False
+    assert cfg_dict == jpers._cfg_to_dict(reloc_cfg(jcfg, only_tracking=True))
     del old["mp_pos"]
     np.savez_compressed(str(tmp_path / "bad.map.npz"), **old)
     with pytest.raises(KeyError):

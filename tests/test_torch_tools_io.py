@@ -34,7 +34,9 @@ def states():
 def test_config_is_the_jax_scripts():
     import dataclasses
 
-    assert dataclasses.asdict(bench_io.bench_config()) == dataclasses.asdict(jax_config())
+    from test_torch_frontend import jax_defaults
+
+    assert dataclasses.asdict(bench_io.bench_config()) == jax_defaults(jax_config())
 
 
 def test_build_state_matches_jax(states):

@@ -92,3 +92,77 @@ def test_tracer(run, case):
         else:
             assert not any(k.startswith("redispatch") for k in counters)
         assert counters["map_copy_bytes"] > 0 and run["export"]["device"] == []
+
+
+class _FakeEvent:
+    """A CUDA event's stand-in on the CPU: records nothing."""
+
+    def __init__(self, *a, **kw):
+        pass
+
+    def record(self, *a):
+        pass
+
+
+def _walk_loop(on: bool) -> dict:
+    """``test_torch_loop_slice``'s walk of one closure on its revisit world
+    (detection, the three Sim3 stages, the correction and every GBA chunk to
+    the commit) with tracing ``on`` or off, CUDA events faked; the closure
+    finds a GBA in flight (abandoned).  Then a cascade on the same pair
+    refused at stage A.  Returns what the tracer kept."""
+    from test_torch_loop_slice import KF_CUR, KF_CAND, setup_slams
+
+    _, ts = setup_slams()
+    # what SLAM._ensure_loop_closer gives the loop closer it builds
+    lc = ts.loop_closer
+    lc.tracer, lc.span, lc.graph_span = ts.tracer, ts._loop_stage, ts._keyframe_program
+    events = []
+
+    def event(*a, **kw):
+        events.append(a)
+        return _FakeEvent()
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.cuda, "Event", event)
+        m.setattr(torch.cuda, "current_device", lambda: 0)
+        if on:
+            ts.time_programs = True
+            ts.tracer.cuda = True             # device spans on the CPU, with the fake events
+        ts._dispatch_loop_detect(KF_CUR)
+        ts._resolve_pending_loop()
+        ts._step_pending_sim3()
+        ts._step_pending_sim3()
+        ts._pending_gba = object()            # a GBA in flight when the closure lands
+        assert ts._step_pending_sim3()
+        while ts._pending_gba is not None:
+            ts._step_pending_gba()
+        lc.cfg = lc.cfg.replace(loop=dataclasses.replace(lc.cfg.loop, min_bow_matches=1 << 20))
+        lc.sim3_begin(ts.map, ts.map_cam, KF_CUR, KF_CAND)
+        ts._step_pending_sim3()
+    return dict(spans=list(ts.tracer.spans), programs=[p[0] for p in ts.program_events], events=events,
+                counts=dict(ts.tracer.counts), n_chunks=sum(ts.cfg.loop.global_ba_phase_iters))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["off", "on"])
+def loop_walk(request) -> dict:
+    return dict(_walk_loop(request.param), on=request.param)
+
+
+def test_loop_closer_counters_and_events(loop_walk):
+    """The loop closer's counters count with tracing on or off (as every
+    counter does): one candidate, one closure that abandoned the GBA in
+    flight, the GBA's chunks, the refused cascade's stage; its programs,
+    the essential graph's ``optimize_essential`` among them, have device
+    pairs in ``program_events`` with tracing on and none with it off."""
+    c = loop_walk["counts"]
+    assert c["loop.candidates"] == 1 and c["loop.closures"] == 1 and c["gba.aborted"] == 1
+    assert c["gba.chunks"] == loop_walk["n_chunks"] and c["loop.rejected.sim3_a"] == 1
+    assert not any(k.startswith("loop.rejected.sim3_") and k != "loop.rejected.sim3_a" for k in c)
+    if not loop_walk["on"]:
+        assert loop_walk["spans"] == [] and loop_walk["programs"] == [] and loop_walk["events"] == []
+        return
+    programs = Counter(loop_walk["programs"])
+    for name in ("sim3_a", "sim3_b", "sim3_c", "correct_front", "fuse", "optimize_essential", "correct"):
+        assert programs[name] >= 1, name
+    assert programs["gba_chunk"] == loop_walk["n_chunks"] and programs["sim3_a"] == 2
+    assert Counter(s[0] for s in loop_walk["spans"])["optimize_essential"] == 1
